@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels.
+
+The kernels under ``mitoflex_tpu_torch/csrc/`` are compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface
+(``libmitoflex_kernels.so``) and loaded with ctypes. The build runs at first
+use, into ``mitoflex_tpu_torch/_build/``, and runs again when the hash of
+the sources or of the command changes. Importing this module compiles
+nothing and needs no ``nvcc``.
+
+Each C entry point launches on the stream it is given, allocates nothing,
+and returns the ``cudaError_t`` of its launch; :func:`check` turns a
+non-zero one into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import List, Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_NAME = "libmitoflex_kernels.so"
+SOURCES = ("filter.cu", "merge.cu")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# seconds the last build took in this process (0.0 when the library was
+# already built for the current sources)
+last_build_seconds = 0.0
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME, else PATH, else the toolkit's default prefix."""
+    home = os.environ.get("CUDA_HOME")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def nvcc_command(out_path: str) -> List[str]:
+    return [
+        nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        "-Xcompiler", "-fPIC", "-o", out_path,
+        *(os.path.join(CSRC_DIR, s) for s in SOURCES),
+    ]
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    h.update(" ".join(nvcc_command(LIB_NAME)[1:]).encode())
+    return h.hexdigest()
+
+
+def build() -> str:
+    """Compile the library unless a build of the current sources exists;
+    returns its path. Raises RuntimeError with nvcc's output on failure."""
+    global last_build_seconds
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
+    stamp = os.path.join(BUILD_DIR, LIB_NAME + ".sha256")
+    digest = _digest()
+    if os.path.exists(lib_path) and os.path.exists(stamp):
+        with open(stamp) as f:
+            if f.read().strip() == digest:
+                last_build_seconds = 0.0
+                return lib_path
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(nvcc_command(tmp), capture_output=True,
+                              text=True, timeout=600)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise RuntimeError(f"nvcc could not run: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    with open(stamp, "w") as f:
+        f.write(digest)
+    last_build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            lib.mfx_filter_reads.argtypes = [
+                vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp, vp, vp, vp,
+            ]
+            lib.mfx_filter_reads.restype = i32
+            lib.mfx_merge_sorted_runs.argtypes = [
+                vp, vp, i64, vp, vp, i64, i32, vp, vp, vp, vp,
+            ]
+            lib.mfx_merge_sorted_runs.restype = i32
+            for fn in (lib.mfx_merge_max_words, lib.mfx_merge_tile_rows):
+                fn.argtypes = []
+                fn.restype = i32
+            lib.mfx_cuda_error_string.argtypes = [i32]
+            lib.mfx_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel's launch returned a CUDA error."""
+    if err != 0:
+        msg = library().mfx_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
