@@ -4,8 +4,9 @@ The parser and the config resolution are the JAX package's own
 (``mitoflex_tpu.cli.build_parser`` / ``resolve_config``, jax-free at
 import), so flags and config files behave identically. One flag is added,
 ``--device`` (``cuda``, ``cuda:N`` or ``cpu``; default: CUDA when a card is
-visible). ``filter`` and ``assemble`` run; the subcommands not ported yet
-exit with status 3 and name the ROADMAP item that ports them.
+visible). ``filter``, ``assemble`` and ``findmitoscaf`` run; the
+subcommands not ported yet exit with status 3 and name the ROADMAP item
+that ports them.
 
 ``MITOFLEX_TORCH_PROFILE=<dir>`` records a ``torch.profiler`` trace of the
 command (CPU, plus CUDA on a card) to ``<dir>/trace.json``.
@@ -25,7 +26,6 @@ from mitoflex_tpu.config import generate_config
 from mitoflex_tpu.utils.logger import logger
 
 NOT_PORTED = {
-    "findmitoscaf": "ROADMAP.md queue 1, item 6 (findmitoscaf)",
     "annotate": "ROADMAP.md queue 1, item 7 (annotate)",
     "visualize": "ROADMAP.md queue 1, item 8 (visualize)",
     "all": "ROADMAP.md queue 1, item 9 (run_all, run_bim and the CLI)",
@@ -33,8 +33,9 @@ NOT_PORTED = {
 }
 PORTED_MODULES = [
     "device", "convert", "kernels", "ops.filter", "ops.psort", "ops.kmer",
-    "ops.dbg", "ops.mapper", "stages.filter", "stages.assemble",
-    "stages.scaffold", "parallel.distributed", "pipeline",
+    "ops.dbg", "ops.mapper", "ops.phmm", "ops.sw", "models.blast",
+    "models.nhmmer", "stages.filter", "stages.assemble", "stages.scaffold",
+    "stages.merge", "stages.findmitoscaf", "parallel.distributed", "pipeline",
 ]
 
 
@@ -70,7 +71,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"config written to {args.generate_config}")
         return 0
 
-    from .pipeline import PipelineContext, run_assemble, run_filter
+    from .pipeline import PipelineContext, run_assemble, run_filter, run_findmitoscaf
 
     t0 = time.time()
     ctx = PipelineContext.create(cfg, known.device)
@@ -94,6 +95,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif args.command == "assemble":
             out = run_assemble(ctx, args.fastq1, args.fastq2)
             print(json.dumps({"contigs": out}))
+        elif args.command == "findmitoscaf":
+            res = run_findmitoscaf(ctx, args.fastafile, args.fastq1, args.fastq2,
+                                   from_megahit=args.from_megahit)
+            print(json.dumps({"picked": res.path}))
         logger.info(f"All done! Time elapsed: {time.time() - t0:.1f}s")
         return 0
     except RuntimeError as e:

@@ -14,7 +14,9 @@ State converters (both ways):
   words + ``[n]`` int32 counts on a device;
 - ``ContigIndex`` fields (``keys``, ``contig_of``, ``pos_of``,
   ``n_entries``);
-- ``GraphPass`` fields.
+- ``GraphPass`` fields;
+- staged profiles (``phmm.DeviceProfile``) and alignment hits
+  (``HmmHits``, ``SwHits``).
 """
 
 from __future__ import annotations
@@ -157,3 +159,30 @@ def graph_pass_to_torch(gp, device):
         prefix_id=t(g.prefix_id), suffix_id=t(g.suffix_id),
         edge_valid=torch.from_numpy(g.edge_valid).to(device),
     )
+
+
+# ------------------------------------------------- staged profiles and hits
+def profile_to_torch(prof, device):
+    """A staged profile of either package (``phmm.DeviceProfile``, one model
+    or stacked) -> the port's, its arrays as float32 tensors on ``device``."""
+    from .ops.phmm import DeviceProfile
+
+    return DeviceProfile(
+        *(torch.from_numpy(np.array(getattr(prof, f), np.float32)).to(device)
+          for f in DeviceProfile._fields[:-1]),
+        int(prof.length),
+    )
+
+
+def profile_to_numpy(prof) -> dict:
+    """A staged profile of either package as a dict of numpy arrays (and
+    the model length)."""
+    out = {f: host(getattr(prof, f)) for f in prof._fields[:-1]}
+    out["length"] = int(prof.length)
+    return out
+
+
+def hits_to_numpy(hits):
+    """``HmmHits`` or ``SwHits`` of either package -> the same NamedTuple
+    holding numpy arrays."""
+    return type(hits)(*(host(x) for x in hits))

@@ -1,48 +1,43 @@
 // Merge of two sorted k-mer runs for Hopper (sm_90a).
 //
-// Replaces mitoflex_tpu/ops/psort.py::merge_sorted_runs: the Pallas
-// _merge_pair_kernel (through _merge_pair_pass) and _merge_finish_kernel
-// (through _merge_finish_pass) after one XLA compare stage at stride m.
-// Contract: run A (na rows) and run B (nb rows) are each sorted by W key
-// words in unsigned lexicographic order; each row carries one 32-bit
-// payload. The output is the sorted run of na + nb rows. Equal keys take
-// A's rows first. Any run lengths are accepted.
+// Replaces two TPU kernels of mitoflex_tpu/ops/psort.py:
+// - merge_sorted_runs (K2): the Pallas _merge_pair_kernel (through
+//   _merge_pair_pass) and _merge_finish_kernel (through _merge_finish_pass)
+//   after one XLA compare stage at stride m; one 32-bit payload per row
+//   (mfx_merge_sorted_runs);
+// - merge_sorted_runs_onepass (K3): the Pallas _mergepath_kernel after the
+//   XLA diagonal search _merge_partitions; 0 to kMaxPays payload words per
+//   row (mfx_merge_sorted_runs_onepass).
+// Contract of both: run A (na rows) and run B (nb rows) are each sorted by
+// W key words in unsigned lexicographic order; payload words ride with
+// their rows. The output is the sorted run of na + nb rows. Equal keys
+// take A's rows first. Any run lengths are accepted.
 //
 // What bounds it on the H100: device-memory bytes. Every row's W key words
-// and its payload are read once and written once; the compares are a few
-// integer operations per byte. The bitonic network's log2(n) passes over
-// memory, and its power-of-two lengths, were Mosaic constraints (no
+// and P payload words are read once and written once; the compares are a
+// few integer operations per byte. The bitonic network's log2(n) passes
+// over memory, and its power-of-two lengths, were Mosaic constraints (no
 // data-dependent addressing), so this is a merge path instead: one pass.
 // A partition kernel binary-searches, for every tile of kTile outputs, the
 // split of the tile's first diagonal between A and B. Each block then
 // stages its tile's slices of A and B (at most kTile rows together) in
 // shared memory, word-major, and every output row finds its own split by a
-// binary search there before it writes its key words and payload; the
-// writes of a warp land on consecutive addresses.
+// binary search there before it writes its key and payload words; the
+// writes of a warp land on consecutive addresses. The number of payload
+// words is a template parameter, so K2 is the P = 1 instance of the same
+// tile code that K3 runs with P = 0..4 (and the sort of sort.cu with
+// P = 0).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "merge_path.cuh"
+
 namespace {
 
-constexpr int kTile = 1024;
 constexpr int kThreads = 256;
-constexpr int kMaxWords = 16;
 
-// a[w * sa + ia] > b[w * sb + ib], lexicographic over W unsigned words
-__device__ __forceinline__ bool key_greater(const uint32_t* a, int64_t sa,
-                                            int64_t ia, const uint32_t* b,
-                                            int64_t sb, int64_t ib, int W) {
-  for (int w = 0; w < W; ++w) {
-    const uint32_t x = a[w * sa + ia];
-    const uint32_t y = b[w * sb + ib];
-    if (x != y) return x > y;
-  }
-  return false;
-}
-
-// Number of A rows among the first d outputs: the first a in
-// [max(0, d - nb), min(d, na)] with A[a] > B[d - 1 - a] (ties take A).
+// Number of A rows among the first d outputs, for every tile boundary.
 __global__ void merge_partition_kernel(const uint32_t* __restrict__ a_keys,
                                        int64_t na,
                                        const uint32_t* __restrict__ b_keys,
@@ -50,103 +45,101 @@ __global__ void merge_partition_kernel(const uint32_t* __restrict__ a_keys,
                                        int64_t* __restrict__ split) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t > n_tiles) return;
-  const int64_t d = min(t * kTile, na + nb);
-  int64_t lo = max((int64_t)0, d - nb);
-  int64_t hi = min(d, na);
-  while (lo < hi) {
-    const int64_t mid = lo + (hi - lo) / 2;
-    if (key_greater(a_keys, na, mid, b_keys, nb, d - 1 - mid, W)) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
-  split[t] = lo;
+  const int64_t d = min(t * mfx::kTile, na + nb);
+  split[t] = mfx::merge_path_split(a_keys, na, na, b_keys, nb, nb, W, d);
 }
 
-__global__ void merge_tile_kernel(
-    const uint32_t* __restrict__ a_keys, const uint32_t* __restrict__ a_vals,
-    int64_t na, const uint32_t* __restrict__ b_keys,
-    const uint32_t* __restrict__ b_vals, int64_t nb, int W,
-    const int64_t* __restrict__ split, uint32_t* __restrict__ out_keys,
-    uint32_t* __restrict__ out_vals) {
-  // rows [0, la) are A's slice, [la, la + lb) B's; word w of row r at
-  // tile[w * kTile + r], the payload at tile[W * kTile + r]
+template <int P>
+__global__ void merge_tile_kernel(const uint32_t* __restrict__ a_keys,
+                                  const uint32_t* __restrict__ a_pays,
+                                  int64_t na,
+                                  const uint32_t* __restrict__ b_keys,
+                                  const uint32_t* __restrict__ b_pays,
+                                  int64_t nb, int W,
+                                  const int64_t* __restrict__ split,
+                                  uint32_t* __restrict__ out_keys,
+                                  uint32_t* __restrict__ out_pays) {
   extern __shared__ uint32_t tile[];
   const int64_t n = na + nb;
-  const int64_t d0 = (int64_t)blockIdx.x * kTile;
-  const int64_t d1 = min(d0 + kTile, n);
+  const int64_t d0 = (int64_t)blockIdx.x * mfx::kTile;
   const int64_t a0 = split[blockIdx.x];
-  const int64_t b0 = d0 - a0;
-  const int la = (int)(split[blockIdx.x + 1] - a0);
-  const int rows = (int)(d1 - d0);
-  const int lb = rows - la;
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    if (r < la) {
-      for (int w = 0; w < W; ++w) tile[w * kTile + r] = a_keys[w * na + a0 + r];
-      tile[W * kTile + r] = a_vals[a0 + r];
-    } else {
-      const int64_t j = b0 + (r - la);
-      for (int w = 0; w < W; ++w) tile[w * kTile + r] = b_keys[w * nb + j];
-      tile[W * kTile + r] = b_vals[j];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    int lo = max(0, i - lb);
-    int hi = min(i, la);
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (key_greater(tile, kTile, mid, tile, kTile, la + i - 1 - mid, W)) {
-        hi = mid;
-      } else {
-        lo = mid + 1;
-      }
-    }
-    const int ai = lo;
-    const int bi = i - lo;
-    const bool take_a =
-        ai < la &&
-        (bi >= lb || !key_greater(tile, kTile, ai, tile, kTile, la + bi, W));
-    const int src = take_a ? ai : la + bi;
-    for (int w = 0; w < W; ++w) out_keys[w * n + d0 + i] = tile[w * kTile + src];
-    out_vals[d0 + i] = tile[W * kTile + src];
-  }
+  mfx::merge_tile<P>(tile, a_keys, a_pays, na, na, b_keys, b_pays, nb, nb, W,
+                     a0, split[blockIdx.x + 1], d0, min(d0 + mfx::kTile, n),
+                     out_keys, out_pays, n, d0);
 }
 
-}  // namespace
-
-extern "C" int mfx_merge_max_words() { return kMaxWords; }
-
-extern "C" int mfx_merge_tile_rows() { return kTile; }
-
-// split: scratch of ceil((na + nb) / kTile) + 1 int64 entries.
-extern "C" int mfx_merge_sorted_runs(const void* a_keys, const void* a_vals,
-                                     int64_t na, const void* b_keys,
-                                     const void* b_vals, int64_t nb, int W,
-                                     void* split, void* out_keys,
-                                     void* out_vals, void* stream) {
+template <int P>
+cudaError_t launch(const void* a_keys, const void* a_pays, int64_t na,
+                   const void* b_keys, const void* b_pays, int64_t nb, int W,
+                   void* split, void* out_keys, void* out_pays,
+                   cudaStream_t s) {
   const int64_t n = na + nb;
-  if (W < 1 || W > kMaxWords) return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaSuccess;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int64_t n_tiles = (n + kTile - 1) / kTile;
+  const int64_t n_tiles = (n + mfx::kTile - 1) / mfx::kTile;
   merge_partition_kernel<<<(unsigned)((n_tiles + 1 + kThreads - 1) / kThreads),
                            kThreads, 0, s>>>(
       (const uint32_t*)a_keys, na, (const uint32_t*)b_keys, nb, W, n_tiles,
       (int64_t*)split);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)(W + 1) * kTile * sizeof(uint32_t);
+  if (err != cudaSuccess) return err;
+  const size_t smem = (size_t)(W + P) * mfx::kTile * sizeof(uint32_t);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(merge_tile_kernel,
+    err = cudaFuncSetAttribute(merge_tile_kernel<P>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
   }
-  merge_tile_kernel<<<(unsigned)n_tiles, kThreads, smem, s>>>(
-      (const uint32_t*)a_keys, (const uint32_t*)a_vals, na,
-      (const uint32_t*)b_keys, (const uint32_t*)b_vals, nb, W,
-      (const int64_t*)split, (uint32_t*)out_keys, (uint32_t*)out_vals);
-  return (int)cudaGetLastError();
+  merge_tile_kernel<P><<<(unsigned)n_tiles, kThreads, smem, s>>>(
+      (const uint32_t*)a_keys, (const uint32_t*)a_pays, na,
+      (const uint32_t*)b_keys, (const uint32_t*)b_pays, nb, W,
+      (const int64_t*)split, (uint32_t*)out_keys, (uint32_t*)out_pays);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mfx_merge_max_words() { return mfx::kMaxWords; }
+
+extern "C" int mfx_merge_max_payloads() { return mfx::kMaxPays; }
+
+extern "C" int mfx_merge_tile_rows() { return mfx::kTile; }
+
+// K2. split: scratch of ceil((na + nb) / kTile) + 1 int64 entries.
+extern "C" int mfx_merge_sorted_runs(const void* a_keys, const void* a_vals,
+                                     int64_t na, const void* b_keys,
+                                     const void* b_vals, int64_t nb, int W,
+                                     void* split, void* out_keys,
+                                     void* out_vals, void* stream) {
+  if (W < 1 || W > mfx::kMaxWords) return (int)cudaErrorInvalidValue;
+  if (na + nb == 0) return (int)cudaSuccess;
+  return (int)launch<1>(a_keys, a_vals, na, b_keys, b_vals, nb, W, split,
+                        out_keys, out_vals, (cudaStream_t)stream);
+}
+
+// K3. Payloads are [P, n] word-major arrays (ignored when P == 0); split as
+// for K2.
+extern "C" int mfx_merge_sorted_runs_onepass(
+    const void* a_keys, const void* a_pays, int64_t na, const void* b_keys,
+    const void* b_pays, int64_t nb, int W, int P, void* split, void* out_keys,
+    void* out_pays, void* stream) {
+  if (W < 1 || W > mfx::kMaxWords || P < 0 || P > mfx::kMaxPays)
+    return (int)cudaErrorInvalidValue;
+  if (na + nb == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (P) {
+    case 0:
+      return (int)launch<0>(a_keys, a_pays, na, b_keys, b_pays, nb, W, split,
+                            out_keys, out_pays, s);
+    case 1:
+      return (int)launch<1>(a_keys, a_pays, na, b_keys, b_pays, nb, W, split,
+                            out_keys, out_pays, s);
+    case 2:
+      return (int)launch<2>(a_keys, a_pays, na, b_keys, b_pays, nb, W, split,
+                            out_keys, out_pays, s);
+    case 3:
+      return (int)launch<3>(a_keys, a_pays, na, b_keys, b_pays, nb, W, split,
+                            out_keys, out_pays, s);
+    default:
+      return (int)launch<4>(a_keys, a_pays, na, b_keys, b_pays, nb, W, split,
+                            out_keys, out_pays, s);
+  }
 }

@@ -2,10 +2,12 @@
 
 The kernels under ``mitoflex_tpu_torch/csrc/`` are compiled by ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface
-(``libmitoflex_kernels.so``) and loaded with ctypes. The build runs at first
-use, into ``mitoflex_tpu_torch/_build/``, and runs again when the hash of
-the sources or of the command changes. Importing this module compiles
-nothing and needs no ``nvcc``.
+(``libmitoflex_kernels.so``) and loaded with ctypes. Each source compiles
+in its own ``nvcc`` process, all started together, and one more ``nvcc``
+links the objects. The build runs at first use, into
+``mitoflex_tpu_torch/_build/``, and runs again when the hash of the sources
+or of the commands changes. Importing this module compiles nothing and
+needs no ``nvcc``.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns the ``cudaError_t`` of its launch; :func:`check` turns a
@@ -21,13 +23,15 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libmitoflex_kernels.so"
-SOURCES = ("filter.cu", "merge.cu")
+SOURCES = ("filter.cu", "merge.cu", "sort.cu")
+HEADERS = ("merge_path.cuh",)
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
@@ -45,21 +49,39 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def nvcc_command(out_path: str) -> List[str]:
+def compile_command(source: str, obj_path: str) -> List[str]:
+    """nvcc command compiling one source of ``csrc/`` to an object."""
     return [
-        nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-o", out_path,
-        *(os.path.join(CSRC_DIR, s) for s in SOURCES),
+        nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+        "-Xcompiler", "-fPIC", "-o", obj_path, os.path.join(CSRC_DIR, source),
     ]
+
+
+def link_command(obj_paths: List[str], out_path: str) -> List[str]:
+    return [nvcc_path(), *ARCH_FLAGS, "-shared", "-o", out_path, *obj_paths]
 
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
-    h.update(" ".join(nvcc_command(LIB_NAME)[1:]).encode())
+    for src in SOURCES:
+        h.update(" ".join(compile_command(src, src + ".o")[1:]).encode())
+    h.update(" ".join(link_command([], LIB_NAME)[1:]).encode())
     return h.hexdigest()
+
+
+def _run_all(cmds: List[List[str]]) -> None:
+    """Run the commands concurrently; raise with the output of every one
+    that failed."""
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        runs = list(pool.map(lambda c: subprocess.run(
+            c, capture_output=True, text=True, timeout=600), cmds))
+    failed = [f"{c[-1]} ({r.returncode}):\n{r.stdout}\n{r.stderr}"
+              for c, r in zip(cmds, runs) if r.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
 
 def build() -> str:
@@ -75,17 +97,17 @@ def build() -> str:
             if f.read().strip() == digest:
                 last_build_seconds = 0.0
                 return lib_path
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{src}.{tag}.o") for src in SOURCES]
+    tmp = f"{lib_path}.{tag}"
     try:
-        proc = subprocess.run(nvcc_command(tmp), capture_output=True,
-                              text=True, timeout=600)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"nvcc could not run: {e}") from e
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+        _run_all([compile_command(s, o) for s, o in zip(SOURCES, objs)])
+        _run_all([link_command(objs, tmp)])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, lib_path)
     with open(stamp, "w") as f:
         f.write(digest)
@@ -108,7 +130,14 @@ def library() -> ctypes.CDLL:
                 vp, vp, i64, vp, vp, i64, i32, vp, vp, vp, vp,
             ]
             lib.mfx_merge_sorted_runs.restype = i32
-            for fn in (lib.mfx_merge_max_words, lib.mfx_merge_tile_rows):
+            lib.mfx_merge_sorted_runs_onepass.argtypes = [
+                vp, vp, i64, vp, vp, i64, i32, i32, vp, vp, vp, vp,
+            ]
+            lib.mfx_merge_sorted_runs_onepass.restype = i32
+            lib.mfx_sort_words2.argtypes = [vp, i64, vp, vp, vp]
+            lib.mfx_sort_words2.restype = i32
+            for fn in (lib.mfx_merge_max_words, lib.mfx_merge_max_payloads,
+                       lib.mfx_merge_tile_rows, lib.mfx_sort_tile_rows):
                 fn.argtypes = []
                 fn.restype = i32
             lib.mfx_cuda_error_string.argtypes = [i32]

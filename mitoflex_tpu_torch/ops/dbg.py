@@ -6,7 +6,10 @@ unique k-mer prefixes/suffixes of the edges, so node ids — and the unitig
 roots, offsets and cycle flags derived from them — match the reference
 exactly. ``graph_unitig_pass`` runs on tensors (gathers and scatters are
 fine on a GPU: the reference's sort-joins were TPU workarounds); the JAX
-``fori_loop`` of pointer doubling becomes a Python loop of gathers.
+``fori_loop`` of pointer doubling becomes a Python loop of gathers. The
+node table and the edges' endpoint ids come from one merge of the edges'
+prefixes (in order already, as the edge table is sorted) with their sorted
+suffixes (``kmer.union_ranks``, the one-pass merge kernel K3 on a card).
 ``graph_unitig_pass_host`` is the CPU device's path through the native C++
 engine (mitoflex_tpu/native/graph.cpp).
 """
@@ -65,15 +68,14 @@ def graph_unitig_pass(edge_words: torch.Tensor, edge_counts: torch.Tensor,
                       k: int) -> GraphPass:
     """Node table, degrees and unitig labelling for an edge set.
 
-    edge_words: [W, E] int32 key words of the solid (k+1)-mers;
-    edge_counts: [E] multiplicities (clamped to uint32 by the caller)."""
+    edge_words: [W, E] int32 key words of the solid (k+1)-mers, sorted
+    (so their k-prefixes are sorted too, which the node table's merge
+    needs); edge_counts: [E] multiplicities (clamped to uint32 by the
+    caller)."""
     dev = edge_words.device
     E = edge_counts.shape[0]
     prefix, suffix = edge_prefix_suffix(edge_words, k)
-    cat = torch.cat([prefix, suffix], dim=1)
-    node_words, V = kmer_ops.unique_words_device(cat)
-    both_id = kmer_ops.multiword_join_sorted(node_words, cat)
-    prefix_id, suffix_id = both_id[:E], both_id[E:]
+    node_words, V, prefix_id, suffix_id = kmer_ops.union_ranks(prefix, suffix)
     out_deg = torch.bincount(prefix_id, minlength=V)
     in_deg = torch.bincount(suffix_id, minlength=V)
 

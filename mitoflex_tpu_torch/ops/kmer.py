@@ -15,8 +15,10 @@ uint64 (``pull_scattered``). Rows of invalid windows carry all-ones keys and
 count 0; a real all-T k-mer shares that key (when 2k is a multiple of 32)
 and its rows are attributed exactly as the reference attributes them.
 
-The chunk sort is a library sort (``torch.sort`` passes), as the reference's
-is ``lax.sort`` outside any Pallas kernel.
+The chunk sort of 2-word keys (k + 1 <= 32) is ``psort.sort_words2``, the
+port of the reference's ``bitonic_sort2`` (the CUDA kernel K4 on a card);
+wider keys take a library sort (``torch.sort`` passes), as the reference's
+default is ``lax.sort``.
 """
 
 from __future__ import annotations
@@ -110,7 +112,15 @@ def count_chunk_runs(
     block the first rows belong to a real all-T k-mer.
 
     Returns ``(sorted_words [W, N], run_counts [N] int32, is_start [N],
-    is_end [N])``; the i-th True of is_start and of is_end bracket one run."""
+    is_end [N])``; the i-th True of is_start and of is_end bracket one run.
+
+    The sort is ``psort.sort_words2`` when ``W == 2`` (the CUDA kernel K4
+    on a card; the JAX package takes ``bitonic_sort2`` only under its
+    ``MITOFLEX_PALLAS_SORT=1`` switch), else ``torch.sort`` passes
+    (``psort.lexsort_words``). Both give the same bytes. Unlike the JAX
+    path, no padding to a power of two is added, so N is the number of
+    windows (the runs are shorter than the JAX runs; the tables pulled from
+    them are equal)."""
     rc = revcomp_codes_padfront(seqs)
     w_f, v_f = extract_kmers(seqs, lengths, k)
     w_r, v_r = extract_kmers(rc, lengths, k, right_aligned=True)
@@ -131,7 +141,10 @@ def count_chunk_runs(
         words = torch.cat([torch.where(v_f, w_f, ALL_ONES),
                            torch.where(v_r, w_r, ALL_ONES)], dim=1).reshape(W, -1)
         valid = torch.cat([v_f, v_r]).reshape(-1)
-    s_words = words[:, psort.lexsort_words(words)]
+    if W == 2:
+        s_words = psort.sort_words2(words.contiguous())
+    else:
+        s_words = words[:, psort.lexsort_words(words)]
     n = valid.shape[0]
     pos = torch.arange(n, device=seqs.device)
     all_ones = (s_words == ALL_ONES).all(0)
@@ -463,6 +476,32 @@ def unique_words_device(words: torch.Tensor) -> Tuple[torch.Tensor, int]:
     new = _row_diff(s)
     u = s[:, new]
     return u, u.shape[1]
+
+
+def union_ranks(a: torch.Tensor, b: torch.Tensor):
+    """The sorted unique columns of the union of ``a`` [W, na], which must
+    be sorted already (the k-prefixes of a sorted edge table are), and
+    ``b`` [W, nb], with every input column's index in that table:
+    ``(unique [W, U], U, rank_a [na], rank_b [nb])``. ``unique`` is what
+    ``unique_words_device`` gives for the concatenation.
+
+    Only ``b`` is sorted; the two runs then merge in one pass with each
+    column's position as payload (``merge_sorted_runs_onepass``, the CUDA
+    kernel K3 on a card), and a column's rank is the number of key changes
+    before it in the merged run. No second sort joins the inputs to the
+    table."""
+    na, nb = a.shape[1], b.shape[1]
+    dev = a.device
+    perm = psort.lexsort_words(b)
+    pos_a = torch.arange(na, dtype=torch.int32, device=dev)[None]
+    pos_b = (perm.to(torch.int32) + na)[None]
+    s, pos = psort.merge_sorted_runs_onepass(
+        a.contiguous(), pos_a, b[:, perm].contiguous(), pos_b)
+    new = _row_diff(s)
+    rank = torch.empty(na + nb, dtype=torch.int64, device=dev)
+    rank[pos[0].to(torch.int64)] = torch.cumsum(new.to(torch.int64), 0) - 1
+    u = s[:, new]
+    return u, u.shape[1], rank[:na], rank[na:]
 
 
 def multiword_join_sorted(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:

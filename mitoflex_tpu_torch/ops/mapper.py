@@ -12,12 +12,17 @@ The reference's gather-free sort-joins (``_rank_join``, ``_fetch_rows``)
 were TPU workarounds; ``_map_device`` resolves seeds with
 ``torch.searchsorted`` and gathers, in the formulation of ``_map_host``, and
 its placements are bit-identical to both of the reference's paths.
+
+``coverage_of_reads`` (with the host helpers ``add_coverage`` and
+``finish_coverage``) maps every read batch and returns per-base depth and
+the mean depth of each contig, the reference's remapping for contigs that
+carry no depth tag.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -268,3 +273,47 @@ def map_batch(
                strand.astype(np.int8), votes.astype(np.int32),
                raw.astype(np.int32))
     return MappedBatch(*out)
+
+
+def add_coverage(
+    depth: List[np.ndarray], index: ContigIndex, mapped: MappedBatch, lengths: np.ndarray
+) -> None:
+    """Accumulate per-base depth via difference arrays (host)."""
+    sel = np.nonzero(mapped.contig >= 0)[0]
+    cis = mapped.contig[sel]
+    for ci in np.unique(cis):
+        rows = sel[cis == ci]
+        d = depth[int(ci)]
+        np.add.at(d, mapped.pos[rows], 1)
+        e = np.minimum(mapped.pos[rows] + lengths[rows], len(d) - 1)
+        np.add.at(d, e, -1)
+
+
+def finish_coverage(depth: List[np.ndarray]) -> List[np.ndarray]:
+    return [np.cumsum(d[:-1]) if len(d) else d for d in depth]
+
+
+def coverage_of_reads(
+    contigs: Sequence[FastaRecord],
+    batches,
+    min_votes: int = 2,
+    device=None,
+) -> Tuple[List[np.ndarray], Dict[str, float], int, int]:
+    """Map all read batches (each with ``seqs``, ``lengths`` and ``count``)
+    on ``device``; returns (per-contig depth arrays, contig id -> mean
+    depth, n_mapped, n_total)."""
+    index = ContigIndex.build(contigs, device)
+    depth = [np.zeros(int(n) + 1, np.int64) for n in index.lengths]
+    n_mapped = n_total = 0
+    for batch in batches:
+        count = batch.count
+        mapped = map_batch(index, batch.seqs[:count], batch.lengths[:count], min_votes)
+        add_coverage(depth, index, mapped, batch.lengths[:count])
+        n_mapped += int((mapped.contig >= 0).sum())
+        n_total += count
+    per_base = finish_coverage(depth)
+    means = {
+        index.ids[i]: float(per_base[i].mean()) if len(per_base[i]) else 0.0
+        for i in range(len(index.ids))
+    }
+    return per_base, means, n_mapped, n_total

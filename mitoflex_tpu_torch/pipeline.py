@@ -1,20 +1,23 @@
-"""Pipeline orchestrator for the ported stages (filter, assemble).
+"""Pipeline orchestrator for the ported stages (filter, assemble,
+findmitoscaf).
 
 Port of mitoflex_tpu/pipeline.py: each stage reads and writes files under
 ``<workname>.temp/<stage>/`` with a manifest, so a stage can be re-run on
 its own. The context carries the run's ``torch.device``, which every stage
-receives explicitly. findmitoscaf, annotate, visualize, ``run_all`` and
-``run_bim`` are not ported yet (ROADMAP).
+receives explicitly. annotate, visualize, ``run_all`` and ``run_bim`` are
+not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
+import shutil
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from mitoflex_tpu.config import PipelineConfig
+from mitoflex_tpu.io import fasta, fastq
 from mitoflex_tpu.models.profiles import ProfileSet, get_profiles
 from mitoflex_tpu.models.taxonomy import Taxonomy, load_taxonomy
 from mitoflex_tpu.utils.logger import logger
@@ -46,6 +49,18 @@ class PipelineContext:
         if not cfg.search.disable_taxa:
             taxonomy = load_taxonomy(cfg.run.taxonomy_dump)
         return cls(cfg, wd, dev, profiles, taxonomy)
+
+    @property
+    def gene_code(self) -> int:
+        cfg = self.cfg.annotate
+        if cfg.genetic_code:
+            return cfg.genetic_code
+        if self.profiles is not None:
+            try:
+                return self.profiles.genetic_code(cfg.clade)
+            except (FileNotFoundError, KeyError):
+                pass
+        return 5
 
 
 def run_filter(ctx: PipelineContext, fastq1: str, fastq2: Optional[str] = None,
@@ -101,3 +116,57 @@ def run_assemble(ctx: PipelineContext, clean1: str, clean2: Optional[str] = None
         out = out2
     wd.write_manifest("assemble", {"inputs": [clean1, clean2], "outputs": [out]})
     return out
+
+
+def run_findmitoscaf(
+    ctx: PipelineContext,
+    contigs_path: str,
+    clean1: Optional[str] = None,
+    clean2: Optional[str] = None,
+    from_megahit: bool = True,
+):
+    """Pick the mitochondrial scaffolds into ``{workname}.picked.fa`` (the
+    reference's names and manifest); returns the stage's ``FindMitoResult``
+    with ``path`` set to that file.
+
+    ``from_megahit=False`` is the standalone entry: the contigs carry no
+    depth tags, so they are gated by the assembler's min/max length and
+    their depth comes from remapping the clean reads."""
+    from .ops import mapper
+    from .stages.findmitoscaf import findmitoscaf
+
+    wd = ctx.workdir
+    records = fasta.load_fasta(contigs_path)
+    if not from_megahit and not clean1 and clean2:
+        clean1, clean2 = clean2, clean1
+    if not from_megahit and not clean1:
+        raise RuntimeError("At least one fastq file should be specified!")
+    if not from_megahit and clean1:
+        lo, hi = ctx.cfg.assemble.min_length, ctx.cfg.assemble.max_length
+        records = [r for r in records if lo <= len(r.seq) <= hi]
+
+        def batches():
+            for path in (clean1, clean2):
+                if path:
+                    yield from fastq.read_batches(path, 8192, ctx.cfg.filter.max_read_len)
+
+        _, means, _, _ = mapper.coverage_of_reads(records, batches(), device=ctx.device)
+        records = [r.with_attrs(flag=1, multi=round(means.get(r.id, 0.0), 2))
+                   for r in records]
+    res = findmitoscaf(
+        ctx.cfg.search, records, ctx.profiles, ctx.cfg.annotate.clade,
+        taxonomy=ctx.taxonomy, gene_code=ctx.gene_code,
+        max_contig_len=ctx.cfg.annotate.max_contig_length,
+        basedir=wd.stage_dir("findmitoscaf"), prefix=ctx.cfg.run.workname,
+        device=ctx.device,
+    )
+    name = f"{ctx.cfg.run.workname}.picked.fa"
+    out = wd.stage_file("findmitoscaf", name)
+    fasta.write_fasta(res.picked, out)
+    shutil.copy(out, wd.result_file(name))
+    wd.write_manifest("findmitoscaf", {
+        "inputs": [contigs_path], "outputs": [out],
+        "found_pcgs": res.found_pcgs, "missing_pcgs": res.missing_pcgs,
+    })
+    res.path = out
+    return res

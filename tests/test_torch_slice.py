@@ -1,4 +1,5 @@
-"""The port's first slice, filter -> assemble, against the JAX package.
+"""The port's slices, filter -> assemble -> findmitoscaf, against the JAX
+package.
 
 A small circular genome plus a linear decoy (tests/synth.py, the verify
 recipe's sizes) runs through both packages' ``run_filter`` and
@@ -8,6 +9,10 @@ byte-identical. The port runs twice: on its CPU host formulations, and with
 ``uses_host_mirrors`` forced off so the tensor formulations that a CUDA
 device runs (device LSM through the plain merge, the tensor graph pass, the
 tensor mapper) run on the CPU.
+
+The second slice carries on through findmitoscaf on a genome of the
+synthetic profile set (tests/profile_fixture.py, four PCGs): the picked
+FASTA must be byte-identical and the manifest must list every PCG found.
 """
 
 import json
@@ -24,7 +29,7 @@ from mitoflex_tpu.io import encoding
 from mitoflex_tpu_torch import device as port_device
 from mitoflex_tpu_torch import kernels
 from mitoflex_tpu_torch import pipeline as port_pipeline
-from tests import synth
+from tests import profile_fixture, synth
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -129,12 +134,75 @@ def test_assemble_options_off_by_default_match_jax(inputs, monkeypatch, host_mir
     assert outs[0] == outs[1] and outs[0].count(b">") >= 1
 
 
+@pytest.fixture(scope="module")
+def fms_inputs(tmp_path_factory):
+    rng = np.random.default_rng(7)
+    tmp = tmp_path_factory.mktemp("slice_fms")
+    fake = profile_fixture.build(tmp, rng, spacer=600)
+    decoy = synth.random_genome(rng, 1500)
+    pairs = synth.shotgun_reads(rng, fake.genome, 1200, read_len=100, insert=300,
+                                circular=True, error_rate=0.005)
+    pairs += synth.shotgun_reads(rng, decoy, 150, read_len=100, insert=300,
+                                 error_rate=0.005)
+    pairs = [pairs[i] for i in rng.permutation(len(pairs))]
+    f1 = synth.write_fastq(tmp / "r1.fq", [p[0] for p in pairs])
+    f2 = synth.write_fastq(tmp / "r2.fq", [p[1] for p in pairs])
+    return tmp, f1, f2, fake
+
+
+def _run_through_findmitoscaf(pipeline_mod, tmp, workname, fake, f1, f2, **ctx_kw):
+    cfg = _config(tmp, workname)
+    cfg.run.profile_dir = fake.profile_dir
+    cfg.annotate.clade = fake.clade
+    cfg.annotate.genetic_code = 5
+    cfg.search.min_abundance = 10
+    ctx = pipeline_mod.PipelineContext.create(cfg, **ctx_kw)
+    if hasattr(ctx, "mesh"):
+        ctx.mesh = None
+    res = pipeline_mod.run_filter(ctx, f1, f2)
+    contigs = pipeline_mod.run_assemble(ctx, res.clean1, res.clean2)
+    picked = pipeline_mod.run_findmitoscaf(ctx, contigs)
+    manifest = ctx.workdir.read_manifest("findmitoscaf")
+    return _read(getattr(picked, "path", picked)), manifest
+
+
+@pytest.fixture(scope="module")
+def jax_picked(fms_inputs):
+    tmp, f1, f2, fake = fms_inputs
+    return _run_through_findmitoscaf(jax_pipeline, tmp, "jax", fake, f1, f2)
+
+
+@pytest.mark.parametrize("host_mirrors", [True, False], ids=["host", "tensor"])
+def test_slice_through_findmitoscaf_matches_jax(fms_inputs, jax_picked, monkeypatch,
+                                                host_mirrors):
+    """Exact: the picked FASTA, byte for byte; it holds the planted circle
+    and the manifest lists the same PCGs, all four found."""
+    tmp, f1, f2, fake = fms_inputs
+    if not host_mirrors:
+        monkeypatch.setattr(port_device, "uses_host_mirrors", lambda d: False)
+    got, manifest = _run_through_findmitoscaf(port_pipeline, tmp, f"port_{host_mirrors}",
+                                              fake, f1, f2, device="cpu")
+    want, want_manifest = jax_picked
+    assert got == want
+    assert _has_planted_circle(got.decode(), fake.genome, k=41)
+    assert manifest["found_pcgs"] == want_manifest["found_pcgs"] == profile_fixture.GENES
+    assert manifest["missing_pcgs"] == want_manifest["missing_pcgs"] == []
+
+
 def test_port_runs_without_jax(tmp_path):
-    """In a fresh interpreter the port filters a batch, merges two runs and
-    runs its CLI's filter, and jax never enters sys.modules."""
+    """In a fresh interpreter the port filters a batch, merges two runs,
+    imports every ported module and runs its CLI's filter and findmitoscaf,
+    and jax never enters sys.modules."""
     rng = np.random.default_rng(1)
     reads = synth.shotgun_reads(rng, synth.random_genome(rng, 800), 50, read_len=80)
     fq = synth.write_fastq(tmp_path / "in.fq", reads)
+    fake = profile_fixture.build(tmp_path, rng)
+    fa = tmp_path / "contigs.fa"
+    fa.write_text(f">c1 flag=1 multi=100.0 len={len(fake.genome)}\n{fake.genome}\n")
+    fms_args = ["findmitoscaf", "--fastafile", str(fa), "--from-megahit",
+                "--workname", "f", "--basedir", str(tmp_path), "--device", "cpu",
+                "--disable-taxa", "--profile-dir", fake.profile_dir,
+                "--clade", fake.clade, "--genetic-code", "5", "--merge-method", "2"]
     code = f"""
 import json, sys
 import numpy as np, torch
@@ -150,8 +218,9 @@ rc = main(["filter", "--fastq1", {fq!r}, "--workname", "w", "--basedir",
            {str(tmp_path)!r}, "--device", "cpu", "--disable-taxa"])
 rc_np = main(["annotate", "--fastafile", "x.fa"])
 rc_mods = main(["load_modules"])
+rc_fms = main({fms_args!r})
 print(json.dumps({{"jax": "jax" in sys.modules, "rc": rc, "rc_np": rc_np,
-                  "rc_mods": rc_mods, "rows": merged[0].shape[1],
+                  "rc_mods": rc_mods, "rc_fms": rc_fms, "rows": merged[0].shape[1],
                   "keep": int(keep.sum())}}))
 """
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
@@ -161,17 +230,23 @@ print(json.dumps({{"jax": "jax" in sys.modules, "rc": rc, "rc_np": rc_np,
                        cwd=str(tmp_path), env=env, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out == {"jax": False, "rc": 0, "rc_np": 3, "rc_mods": 0,
+    assert out == {"jax": False, "rc": 0, "rc_np": 3, "rc_mods": 0, "rc_fms": 0,
                    "rows": 2 * 64 * 12, "keep": out["keep"]}
+    picked = tmp_path / "f" / "f.result" / "f.picked.fa"
+    assert "".join(picked.read_text().split("\n")[1:]) == fake.genome
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
 
 
 def test_kernel_loader_needs_no_nvcc():
     """The loader imports and names its build without compiling anything;
-    the command targets sm_90a."""
-    cmd = kernels.nvcc_command("libx.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
-    assert [os.path.basename(c) for c in cmd if c.endswith(".cu")] == list(kernels.SOURCES)
+    every source compiles for sm_90a and the link makes a shared library."""
+    cmds = [kernels.compile_command(s, s + ".o") for s in kernels.SOURCES]
+    for src, cmd in zip(kernels.SOURCES, cmds):
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert {"-c", "-O3", "-std=c++17"} <= set(cmd)
+        assert [os.path.basename(c) for c in cmd if c.endswith(".cu")] == [src]
+    assert kernels.SOURCES == ("filter.cu", "merge.cu", "sort.cu")
+    link = kernels.link_command(["a.o", "b.o"], "libx.so")
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
     assert kernels._lib is None
     assert os.path.dirname(kernels.BUILD_DIR) == os.path.join(REPO, "mitoflex_tpu_torch")
