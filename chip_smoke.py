@@ -5,13 +5,19 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. torch / CUDA versions and the card; build the CUDA kernel library from
-   mitoflex_tpu_torch/csrc (timed).
+   mitoflex_tpu_torch/csrc and the native host library from
+   mitoflex_tpu_torch/native (both timed), so that neither build lands in
+   a timed stage.
 2. K1, the read-filter kernel, against its plain PyTorch version at
    65536 x 256 (random reads plus edge rows): bit-equal; both timed.
 3. K2, the sorted-run merge kernel, against its plain version at 2 x 2**21
    rows (W = 2 and W = 8 key words) and 2 x 2**25 rows (W = 2, the device
    LSM's cap): output sorted, keys exact, per-key payload sums equal; both
-   timed.
+   timed. Then K2, K3 and K4 on the seeded cases of
+   mitoflex_tpu_torch/testing/kernel_cases.py (run lengths around the tile
+   sizes, an empty run, rows of 16 key and 4 payload words, deep ties, more
+   than a tile of one key, sort lengths that are no multiple of the tile):
+   equal to the plain versions.
 4. K3, the one-pass merge kernel, against its plain version at 2 x 2**21
    rows (W = 2; P = 0, 1, 2 payload words), 2 x 2**25 rows (W = 2,
    P = 1), and at the graph pass's shapes: W = 4 and 8, one payload word
@@ -24,7 +30,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    (16384 reads x 225 windows = 3,686,400 keys) and at 2**24 keys: equal;
    both timed.
 6. The slice filter -> assemble -> findmitoscaf at the golden-sample
-   volume: the synthetic profile set's genome (tests/profile_fixture.py,
+   volume: the synthetic profile set's genome
+   (mitoflex_tpu_torch/testing/profile_fixture.py,
    spacer 2440: a ~13.2 kb circle with four PCGs) at 400x plus two 8 kb
    nuclear decoys at 12x, 150 bp pairs, insert 300, 1% errors, from
    --seed, through the port's PipelineContext(device="cuda"), run_filter,
@@ -33,17 +40,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    FASTA must hold a circular scaffold equal to the planted genome up to
    rotation and strand once its (k-1)-base terminal duplication is
    dropped, and the manifest must list all four PCGs as found.
-7. K3 again on the edge tables that the golden run's graph passes took
-   (one per pass, k = 31 to 119, W = 2 to 8): row-for-row equal to its
-   plain version; the node step (node table and endpoint ids) and the
-   whole graph pass timed with K3 and with the sort-and-join formulation
-   that K3 replaced.
+7. K2 again on the runs that the golden run's k-mer LSM really merged
+   (recorded during phase 6): keys exact, per-key payload sums equal; each
+   shape timed. K3 again on the edge tables that the golden run's graph
+   passes took (one per pass, k = 31 to 119, W = 2 to 8): row-for-row equal
+   to its plain version and timed alone; the node step (node table and
+   endpoint ids) and the whole graph pass timed with K3 and with the
+   sort-and-join formulation that K3 replaced.
 8. A small slice through findmitoscaf run twice, on the card and on the
    CPU (the host formulations, held against the JAX package by
    tests/test_torch_slice.py): the clean FASTQs, the contigs and the picked
    FASTA must be byte-identical.
 
-Kernel times are medians of CUDA-event-timed repeats after a warm-up. The
+Kernel times are medians of CUDA-event-timed repeats after a warm-up; one
+repeat is one call of the kernel's wrapper between two events, so it holds
+the wrapper's host time before the launch too. Each kernel's bound is the
+bytes of its inputs and outputs, moved once at the H100's 3.35 TB/s. The
 last two lines are one JSON object of per-kernel results and then
 {"ok": true, "device": {...}}; the card's name and power limit (from
 nvidia-smi) are printed before them. Without a CUDA device the script exits
@@ -100,9 +112,18 @@ def _cuda_ms(fn, repeats: int = REPEATS) -> float:
     return float(np.median(times))
 
 
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
+
+
+def _bound_ms(*tensors) -> float:
+    """Least milliseconds the card could take to read the inputs and write
+    the outputs given (every byte moved once at the device-memory rate)."""
+    return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_MS
+
+
 # ------------------------------------------------------------------ K1
 def check_filter(dev) -> dict:
-    from mitoflex_tpu.io import encoding
+    from mitoflex_tpu_torch.io import encoding
     from mitoflex_tpu_torch.ops import filter as F
 
     B, L = 65536, 256
@@ -137,10 +158,13 @@ def check_filter(dev) -> dict:
                              f"edge rows {keep}")
     ms = _cuda_ms(lambda: F.filter_reads(*t[:3], *args))
     plain_ms = _cuda_ms(lambda: F.filter_reads_ref(*t[:3], *args))
+    # seqs, quals, lengths and the float32 cutoffs in; keep, h1, h2 out
+    bound_ms = _bound_ms(*t[:3], t[2].to(torch.float32), *got)
     _log(f"K1 filter_reads {B}x{L}: bit-equal to filter_reads_ref (SE and PE "
          f"cutoffs); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-         f"{B * L / ms / 1e6:.2f} Gbase/s")
-    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
+         f"bound {bound_ms:.4f} ms, {B * L / ms / 1e6:.2f} Gbase/s")
+    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
 # ------------------------------------------------------------------ K2
@@ -184,9 +208,31 @@ def _is_sorted(words: torch.Tensor) -> bool:
     return not bool(gt.any())
 
 
-def check_merge(dev) -> list:
+def _k2_compare_and_time(a, b, what: str) -> dict:
+    """K2 against its plain version on the runs a = (keys, vals) and b:
+    raises unless the output is sorted, its keys exact and its per-key
+    payload sums equal; returns the error (0), both times and the bound."""
     from mitoflex_tpu_torch.ops import psort
 
+    got = psort.merge_sorted_runs(*a, *b)
+    want = psort.merge_sorted_runs_ref(*a, *b)
+    torch.cuda.synchronize()
+    if not _is_sorted(got[0]):
+        raise AssertionError(f"K2 output not sorted ({what})")
+    key_err = int((got[0].to(torch.int64) - want[0].to(torch.int64)).abs().max())
+    sum_err = int((_per_key_sums(*got) - _per_key_sums(*want)).abs().max())
+    if key_err or sum_err:
+        raise AssertionError(f"K2 disagrees with merge_sorted_runs_ref ({what}): "
+                             f"key err {key_err}, per-key sum err {sum_err}")
+    bound_ms = _bound_ms(*a, *b, *got)
+    del got, want
+    ms = _cuda_ms(lambda: psort.merge_sorted_runs(*a, *b), repeats=10)
+    plain_ms = _cuda_ms(lambda: psort.merge_sorted_runs_ref(*a, *b), repeats=10)
+    return {"max_abs_err": float(max(key_err, sum_err)), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+def check_merge(dev) -> list:
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     results = []
@@ -194,28 +240,60 @@ def check_merge(dev) -> list:
         m = 1 << log2m
         a = _random_run(gen, m, W, dev)
         b = _random_run(gen, m, W, dev)
-        got = psort.merge_sorted_runs(*a, *b)
-        want = psort.merge_sorted_runs_ref(*a, *b)
-        torch.cuda.synchronize()
-        if not _is_sorted(got[0]):
-            raise AssertionError(f"K2 output not sorted (m=2^{log2m}, W={W})")
-        key_err = int((got[0].to(torch.int64) - want[0].to(torch.int64)).abs().max())
-        sum_err = int((_per_key_sums(*got) - _per_key_sums(*want)).abs().max())
-        if key_err or sum_err:
-            raise AssertionError(f"K2 disagrees with merge_sorted_runs_ref "
-                                 f"(m=2^{log2m}, W={W}): key err {key_err}, "
-                                 f"per-key sum err {sum_err}")
-        del want
-        ms = _cuda_ms(lambda: psort.merge_sorted_runs(*a, *b), repeats=10)
-        plain_ms = _cuda_ms(lambda: psort.merge_sorted_runs_ref(*a, *b), repeats=10)
+        r = _k2_compare_and_time(a, b, f"m=2^{log2m}, W={W}")
         _log(f"K2 merge_sorted_runs 2x2^{log2m} rows, W={W}: sorted, keys exact, "
-             f"per-key sums equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-             f"{2 * m / ms / 1e6:.2f} Grows/s")
-        results.append({"max_abs_err": float(max(key_err, sum_err)), "ms": ms,
-                        "plain_ms": plain_ms})
-        del a, b, got
+             f"per-key sums equal; kernel {r['ms']:.4f} ms, plain "
+             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
+             f"{2 * m / r['ms'] / 1e6:.2f} Grows/s")
+        results.append(r)
+        del a, b
         torch.cuda.empty_cache()
     return results
+
+
+def check_merge_golden(recorded) -> list:
+    """K2 on the runs the golden run's k-mer LSM merged (``recorded``:
+    (a_keys, a_vals, b_keys, b_vals) per launch, in launch order)."""
+    results = []
+    for i, (ak, av, bk, bv) in enumerate(recorded):
+        W, na, nb = ak.shape[0], ak.shape[1], bk.shape[1]
+        r = _k2_compare_and_time((ak, av), (bk, bv),
+                                 f"golden LSM merge {i}: W={W}, {na} + {nb} rows")
+        r.update(W=W, na=na, nb=nb)
+        results.append(r)
+    _log("K2 on the golden run's LSM merges (W, rows A + rows B: kernel / plain / "
+         "bound ms), all sorted, keys exact, per-key sums equal: " + "; ".join(
+             f"W={r['W']} {r['na']}+{r['nb']}: {r['ms']:.4f} / {r['plain_ms']:.4f} / "
+             f"{r['bound_ms']:.4f}" for r in results))
+    _log(f"K2 golden LSM merges: {len(results)} launches, kernel "
+         f"{sum(r['ms'] for r in results):.4f} ms in all, bound "
+         f"{sum(r['bound_ms'] for r in results):.4f} ms")
+    return results
+
+
+def check_kernel_cases(dev) -> int:
+    """K2, K3 and K4 on the seeded cases of testing/kernel_cases.py, and the
+    tile sizes that module's shapes are built around against the built
+    library's. Raises on any difference from the plain versions; returns
+    the number of cases."""
+    from mitoflex_tpu_torch import kernels
+    from mitoflex_tpu_torch.ops import psort
+    from mitoflex_tpu_torch.testing import kernel_cases
+
+    lib = kernels.library()
+    if lib.mfx_sort_tile_rows() != psort.SORT_TILE_KEYS:
+        raise AssertionError("psort.SORT_TILE_KEYS differs from the library's tile")
+    for W, P in ((1, 0), (2, 1), (4, 1), (8, 1), (16, 4)):
+        if lib.mfx_merge_tile_rows(W, P) != psort.merge_tile_rows(W, P):
+            raise AssertionError(f"psort.merge_tile_rows({W}, {P}) differs from "
+                                 f"the library's")
+
+    n_cases = kernel_cases.check_wrappers(dev)
+    torch.cuda.synchronize()
+    _log(f"K2/K3/K4 on {n_cases} seeded edge cases (tile - 1, tile, tile + 1, empty "
+         f"runs, W up to 16, P up to 4, deep ties, a tile of one key): equal to the "
+         f"plain versions")
+    return n_cases
 
 
 # ------------------------------------------------------------------ K3
@@ -233,6 +311,18 @@ def _k3_compare(runs, what: str) -> int:
         raise AssertionError(f"K3 disagrees with merge_sorted_runs_onepass_ref "
                              f"({what}): max err {err}")
     return err
+
+
+def _k3_compare_and_time(runs, what: str) -> dict:
+    """_k3_compare, then both versions timed and the bound of these runs
+    (every input and output word moved once)."""
+    from mitoflex_tpu_torch.ops import psort
+
+    err = _k3_compare(runs, what)
+    ms = _cuda_ms(lambda: psort.merge_sorted_runs_onepass(*runs), repeats=10)
+    plain_ms = _cuda_ms(lambda: psort.merge_sorted_runs_onepass_ref(*runs), repeats=10)
+    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 2 * _bound_ms(*runs)}
 
 
 def _prefix_like_run(gen, n: int, W: int, dev):
@@ -269,14 +359,11 @@ def check_merge_onepass(dev) -> list:
             pays = torch.randint(-2**31, 2**31, (P, m), generator=gen, device=dev,
                                  dtype=torch.int64).to(torch.int32)
             runs += [keys, pays]
-        err = _k3_compare(runs, f"m=2^{log2m}, P={P}")
-        ms = _cuda_ms(lambda: psort.merge_sorted_runs_onepass(*runs), repeats=10)
-        plain_ms = _cuda_ms(lambda: psort.merge_sorted_runs_onepass_ref(*runs),
-                            repeats=10)
+        r = _k3_compare_and_time(runs, f"m=2^{log2m}, P={P}")
         _log(f"K3 merge_sorted_runs_onepass 2x2^{log2m} rows, W=2, P={P}: row-for-row "
-             f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-             f"{2 * m / ms / 1e6:.2f} Grows/s")
-        results.append({"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms})
+             f"equal; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+             f"{r['bound_ms']:.4f} ms, {2 * m / r['ms'] / 1e6:.2f} Grows/s")
+        results.append(r)
         del runs
         torch.cuda.empty_cache()
     # the graph pass's shapes: row positions as the one payload word,
@@ -289,14 +376,12 @@ def check_merge_onepass(dev) -> list:
                                           device=dev)], fresh], dim=1)
         perm = psort.lexsort_words(b)
         runs = _positions_runs(a, b, perm)
-        err = _k3_compare(runs, f"W={W}, P=1, {na} + {nb} rows")
-        ms = _cuda_ms(lambda: psort.merge_sorted_runs_onepass(*runs), repeats=10)
-        plain_ms = _cuda_ms(lambda: psort.merge_sorted_runs_onepass_ref(*runs),
-                            repeats=10)
+        r = _k3_compare_and_time(runs, f"W={W}, P=1, {na} + {nb} rows")
         _log(f"K3 merge_sorted_runs_onepass {na}+{nb} rows, W={W}, P=1 (prefix-like "
              f"run A with a {na // 8}-row tie block): row-for-row equal; kernel "
-             f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-        results.append({"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms})
+             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+             f"{r['bound_ms']:.4f} ms")
+        results.append(r)
         del runs, a, b
         torch.cuda.empty_cache()
     return results
@@ -322,8 +407,9 @@ def check_graph_pass_k3(passes) -> list:
         prefix, suffix = dbg.edge_prefix_suffix(edges, k)
         if not _is_sorted(prefix):
             raise AssertionError(f"graph pass k={k}: edge prefixes not sorted")
-        err = _k3_compare(_positions_runs(prefix, suffix, psort.lexsort_words(suffix)),
-                          f"graph pass k={k}, W={W}, E={E}")
+        k3 = _k3_compare_and_time(
+            _positions_runs(prefix, suffix, psort.lexsort_words(suffix)),
+            f"graph pass k={k}, W={W}, E={E}")
         got, want = kmer.union_ranks(prefix, suffix), sort_and_join(prefix, suffix)
         if got[1] != want[1] or not all(torch.equal(g, w) for g, w in
                                         zip(got[::2] + got[3:], want[::2] + want[3:])):
@@ -340,11 +426,12 @@ def check_graph_pass_k3(passes) -> list:
         finally:
             kmer.union_ranks = real_union_ranks
         _log(f"K3 on the golden graph pass k={k} (W={W}, E={E}, {got[1]} nodes): "
-             f"row-for-row equal; node step {step_ms:.4f} ms with K3, "
+             f"row-for-row equal; K3 alone {k3['ms']:.4f} ms (plain "
+             f"{k3['plain_ms']:.4f} ms, bound {k3['bound_ms']:.4f} ms); node step "
+             f"{step_ms:.4f} ms with K3, "
              f"{step_sort_ms:.4f} ms with sort-and-join; graph pass {pass_ms:.4f} ms "
              f"with K3, {pass_sort_ms:.4f} ms with sort-and-join")
-        results.append({"max_abs_err": float(err), "k": k, "W": W, "E": E,
-                        "step_ms": step_ms, "step_sort_ms": step_sort_ms,
+        results.append({**k3, "k": k, "W": W, "E": E, "step_ms": step_ms, "step_sort_ms": step_sort_ms,
                         "pass_ms": pass_ms, "pass_sort_ms": pass_sort_ms})
     return results
 
@@ -376,10 +463,15 @@ def check_sort2(dev) -> list:
         del got, want
         ms = _cuda_ms(lambda: psort.sort_words2(words), repeats=10)
         plain_ms = _cuda_ms(lambda: psort.sort_words2_ref(words), repeats=10)
-        _log(f"K4 sort_words2 n={n}: equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-             f"ms, {n / ms / 1e6:.2f} Gkeys/s")
+        # the plain version is one library call: torch.sort on the packed
+        # 64-bit key, plus the gather
+        bound_ms = 2 * _bound_ms(words)
+        _log(f"K4 sort_words2 n={n}: equal; kernel {ms:.4f} ms, plain (torch.sort on "
+             f"the packed key + gather) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms, "
+             f"{n / ms / 1e6:.2f} Gkeys/s")
         results.append({"n": n, "max_abs_err": float(err), "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "library_ms": plain_ms})
         del words
         torch.cuda.empty_cache()
     return results
@@ -388,7 +480,7 @@ def check_sort2(dev) -> list:
 # --------------------------------------------------------------- slice
 def _fastq_pair(rng, tmp: str, genome: str, decoys, cov: int, decoy_cov: int,
                 read_len: int, insert: int, error: float):
-    from tests import synth
+    from mitoflex_tpu_torch.testing import synth
 
     pairs = synth.shotgun_reads(rng, genome, len(genome) * cov // (2 * read_len),
                                 read_len=read_len, insert=insert, circular=True,
@@ -406,7 +498,7 @@ def _fastq_pair(rng, tmp: str, genome: str, decoys, cov: int, decoy_cov: int,
 def _planted_circle(fa_path: str, genome: str, klist) -> str:
     """The id of a contig flagged circular that is the genome up to rotation
     and strand after its (k-1)-base terminal duplication; '' if none."""
-    from mitoflex_tpu.io import encoding, fasta
+    from mitoflex_tpu_torch.io import encoding, fasta
 
     doubled = genome + genome
     for rec in fasta.load_fasta(fa_path):
@@ -421,7 +513,7 @@ def _planted_circle(fa_path: str, genome: str, klist) -> str:
 
 
 def _slice_config(tmp: str, workname: str, golden: bool, fake):
-    from mitoflex_tpu.config import PipelineConfig
+    from mitoflex_tpu_torch.config import PipelineConfig
 
     cfg = PipelineConfig()
     cfg.run.basedir = tmp
@@ -455,11 +547,12 @@ def _launch_counters():
 
 
 def run_golden_slice(seed: int, tmp: str):
-    """Returns the launch counts and the graph passes' inputs
-    ((edge_words, edge_counts, k) each, kept for phase 7)."""
+    """Returns the launch counts, the graph passes' inputs ((edge_words,
+    edge_counts, k) each) and the LSM merges' inputs ((a_keys, a_vals,
+    b_keys, b_vals) each), both kept for phase 7."""
     from mitoflex_tpu_torch import pipeline
-    from mitoflex_tpu_torch.ops import dbg
-    from tests import profile_fixture, synth
+    from mitoflex_tpu_torch.ops import dbg, psort
+    from mitoflex_tpu_torch.testing import profile_fixture, synth
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
@@ -479,9 +572,19 @@ def run_golden_slice(seed: int, tmp: str):
         passes.append((edge_words.clone(), edge_counts.clone(), k))
         return graph_pass(edge_words, edge_counts, k)
 
-    counters = _launch_counters()
+    merges = []
+    merge_runs = psort.merge_sorted_runs
+
+    def kept_merge(a_keys, a_vals, b_keys, b_vals):
+        merges.append(tuple(x.clone() for x in (a_keys, a_vals, b_keys, b_vals)))
+        return merge_runs(a_keys, a_vals, b_keys, b_vals)
+
+    # the wrapper counts on the module attribute of its own name, which is
+    # the recording function while this run lasts
+    counters = {**_launch_counters(), "merge_sorted_runs": kept_merge}
     ctx = pipeline.PipelineContext.create(cfg, device="cuda")
     dbg.graph_unitig_pass = kept_graph_pass
+    psort.merge_sorted_runs = kept_merge
     try:
         for fn in counters.values():
             fn.launches = 0
@@ -501,6 +604,7 @@ def run_golden_slice(seed: int, tmp: str):
         launches = {name: fn.launches for name, fn in counters.items()}
     finally:
         dbg.graph_unitig_pass = graph_pass
+        psort.merge_sorted_runs = merge_runs
     w = found.walls
     _log(f"slice walls: filter {filter_s:.3f} s ({res.reads_kept}/{res.reads_in} "
          f"pairs kept), assemble {assemble_s:.3f} s (incl. local extension and "
@@ -522,12 +626,12 @@ def run_golden_slice(seed: int, tmp: str):
     _log(f"slice output: picked scaffold {hit} is the planted {len(genome)} bp circle "
          f"(rotation/strand, after the terminal duplication); PCGs found "
          f"{manifest['found_pcgs']}")
-    return launches, passes
+    return launches, passes, merges
 
 
 def run_small_slice_vs_cpu(seed: int, tmp: str) -> None:
     from mitoflex_tpu_torch import pipeline
-    from tests import profile_fixture, synth
+    from mitoflex_tpu_torch.testing import profile_fixture, synth
 
     rng = np.random.default_rng(seed + 1)
     fake = profile_fixture.build(pathlib.Path(tmp) / "small", rng, spacer=600)
@@ -570,50 +674,59 @@ def main() -> int:
     card = _nvidia_smi()
     _log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    from mitoflex_tpu_torch.native import fastq_native
+
     t0 = time.perf_counter()
     kernels.library()
     _log(f"kernel library {kernels.LIB_NAME} ready in "
          f"{time.perf_counter() - t0:.2f} s (nvcc {kernels.last_build_seconds:.2f} s, "
          f"{' '.join(kernels.ARCH_FLAGS)})")
+    t0 = time.perf_counter()
+    kernels.host_library()
+    _log(f"native host library {fastq_native.LIB_NAME} ready in "
+         f"{time.perf_counter() - t0:.2f} s (g++ "
+         f"{fastq_native.last_build_seconds:.2f} s)")
 
     k1 = check_filter(dev)
     k2 = check_merge(dev)
+    check_kernel_cases(dev)
     k3 = check_merge_onepass(dev)
     k4 = check_sort2(dev)
     tmp = args.out or tempfile.mkdtemp(prefix="mitoflex_chip_smoke_")
     os.makedirs(tmp, exist_ok=True)
     try:
-        launches, passes = run_golden_slice(args.seed, tmp)
-        k3 += check_graph_pass_k3(passes)
-        del passes
+        launches, passes, merges = run_golden_slice(args.seed, tmp)
+        k2_golden = check_merge_golden(merges)
+        k3_golden = check_graph_pass_k3(passes)
+        del passes, merges
         run_small_slice_vs_cpu(args.seed, tmp)
     finally:
         if args.out is None:
             shutil.rmtree(tmp, ignore_errors=True)
 
+    # each kernel's times and bound at a shape of the golden run: K1 at its
+    # full-width batch, K2 at the LSM's largest merge, K3 at the first graph
+    # pass's node step, K4 at one golden chunk
+    k2_main = max(k2_golden, key=lambda r: r["na"] + r["nb"])
+    k3_main, k4_main = k3_golden[0], k4[1]
+
+    def entry(name, source, replaces, shape, errs):
+        return {"name": name, "route": "cuda",
+                "source": f"mitoflex_tpu_torch/csrc/{source}",
+                "replaces": f"mitoflex_tpu/ops/{replaces}",
+                "launches": launches[name],
+                "max_abs_err": max(r["max_abs_err"] for r in errs),
+                "ms": shape["ms"], "plain_ms": shape["plain_ms"],
+                "bound_ms": shape["bound_ms"], "bound_by": "bytes",
+                "library_ms": shape.get("library_ms")}
+
     kernels_line = {"kernels": [
-        {"name": "filter_reads", "route": "cuda",
-         "source": "mitoflex_tpu_torch/csrc/filter.cu",
-         "replaces": "mitoflex_tpu/ops/filter.py:92",
-         "launches": launches["filter_reads"], **k1},
-        {"name": "merge_sorted_runs", "route": "cuda",
-         "source": "mitoflex_tpu_torch/csrc/merge.cu",
-         "replaces": "mitoflex_tpu/ops/psort.py:557",
-         "launches": launches["merge_sorted_runs"],
-         "max_abs_err": max(r["max_abs_err"] for r in k2),
-         "ms": k2[0]["ms"], "plain_ms": k2[0]["plain_ms"]},
-        {"name": "merge_sorted_runs_onepass", "route": "cuda",
-         "source": "mitoflex_tpu_torch/csrc/merge.cu",
-         "replaces": "mitoflex_tpu/ops/psort.py:467",
-         "launches": launches["merge_sorted_runs_onepass"],
-         "max_abs_err": max(r["max_abs_err"] for r in k3),
-         "ms": k3[0]["ms"], "plain_ms": k3[0]["plain_ms"]},
-        {"name": "sort_words2", "route": "cuda",
-         "source": "mitoflex_tpu_torch/csrc/sort.cu",
-         "replaces": "mitoflex_tpu/ops/psort.py:195",
-         "launches": launches["sort_words2"],
-         "max_abs_err": max(r["max_abs_err"] for r in k4),
-         "ms": k4[1]["ms"], "plain_ms": k4[1]["plain_ms"]},
+        entry("filter_reads", "filter.cu", "filter.py:92", k1, [k1]),
+        entry("merge_sorted_runs", "merge.cu", "psort.py:557", k2_main,
+              k2 + k2_golden),
+        entry("merge_sorted_runs_onepass", "merge.cu", "psort.py:467", k3_main,
+              k3 + k3_golden),
+        entry("sort_words2", "sort.cu", "psort.py:195", k4_main, k4),
     ]}
     print(card)
     print(json.dumps(kernels_line))

@@ -17,16 +17,14 @@
 // and P payload words are read once and written once; the compares are a
 // few integer operations per byte. The bitonic network's log2(n) passes
 // over memory, and its power-of-two lengths, were Mosaic constraints (no
-// data-dependent addressing), so this is a merge path instead: one pass.
-// A partition kernel binary-searches, for every tile of kTile outputs, the
-// split of the tile's first diagonal between A and B. Each block then
-// stages its tile's slices of A and B (at most kTile rows together) in
-// shared memory, word-major, and every output row finds its own split by a
-// binary search there before it writes its key and payload words; the
-// writes of a warp land on consecutive addresses. The number of payload
-// words is a template parameter, so K2 is the P = 1 instance of the same
-// tile code that K3 runs with P = 0..4 (and the sort of sort.cu with
-// P = 0).
+// data-dependent addressing), so this is a merge path instead: one pass,
+// in one launch. Each block loops over output tiles; for each it finds the
+// tile's split of A and B with a warp-wide search, stages the two slices in
+// shared memory with asynchronous copies (the next tile loads while this
+// one merges), and every thread merges several consecutive outputs
+// serially (merge_path.cuh). K2 is the one-payload case of the kernel that
+// K3 runs with 0 to 4 payload words; the sort of sort.cu runs the same
+// tile code on packed 64-bit keys.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,63 +33,74 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 2;
+constexpr int kMaxSmemBytes = 112 * 1024;  // of any row width; two fit an SM
 
-// Number of A rows among the first d outputs, for every tile boundary.
-__global__ void merge_partition_kernel(const uint32_t* __restrict__ a_keys,
-                                       int64_t na,
-                                       const uint32_t* __restrict__ b_keys,
-                                       int64_t nb, int W, int64_t n_tiles,
-                                       int64_t* __restrict__ split) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t > n_tiles) return;
-  const int64_t d = min(t * mfx::kTile, na + nb);
-  split[t] = mfx::merge_path_split(a_keys, na, na, b_keys, nb, nb, W, d);
+constexpr bool smem_fits() {
+  for (int nw = 1; nw <= mfx::kMaxWords + mfx::kMaxPays; ++nw)
+    if (mfx::merge_smem_bytes<uint32_t>(nw, mfx::merge_tile_rows(nw * 4)) >
+        (size_t)kMaxSmemBytes)
+      return false;
+  return true;
+}
+static_assert(smem_fits(), "a merge tile outgrows kMaxSmemBytes");
+
+struct RunPair {
+  const uint32_t* a_keys;
+  const uint32_t* a_pays;
+  int64_t na;
+  const uint32_t* b_keys;
+  const uint32_t* b_pays;
+  int64_t nb;
+  int R;
+  __device__ mfx::Tile<uint32_t> operator()(int64_t g) const {
+    const int64_t d0 = g * R;
+    return {a_keys, a_pays, b_keys, b_pays, /*sa=*/na, na, /*sb=*/nb, nb,
+            d0,     min(d0 + R, na + nb), /*out_off=*/d0};
+  }
+};
+
+struct StoreWords {
+  uint32_t* out_keys;
+  uint32_t* out_pays;
+  int64_t n;
+  int W;
+  __device__ void operator()(int w, int64_t row, uint32_t v) const {
+    if (w < W) {
+      out_keys[w * n + row] = v;
+    } else {
+      out_pays[(w - W) * n + row] = v;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(mfx::kMergeThreads, kBlocksPerSm)
+    merge_runs_kernel(RunPair runs, StoreWords store, int W, int nw,
+                      int64_t n_tiles, int chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  mfx::merge_tiles<uint32_t>(smem, W, nw, runs.R, n_tiles, chunk, runs, store);
 }
 
-template <int P>
-__global__ void merge_tile_kernel(const uint32_t* __restrict__ a_keys,
-                                  const uint32_t* __restrict__ a_pays,
-                                  int64_t na,
-                                  const uint32_t* __restrict__ b_keys,
-                                  const uint32_t* __restrict__ b_pays,
-                                  int64_t nb, int W,
-                                  const int64_t* __restrict__ split,
-                                  uint32_t* __restrict__ out_keys,
-                                  uint32_t* __restrict__ out_pays) {
-  extern __shared__ uint32_t tile[];
-  const int64_t n = na + nb;
-  const int64_t d0 = (int64_t)blockIdx.x * mfx::kTile;
-  const int64_t a0 = split[blockIdx.x];
-  mfx::merge_tile<P>(tile, a_keys, a_pays, na, na, b_keys, b_pays, nb, nb, W,
-                     a0, split[blockIdx.x + 1], d0, min(d0 + mfx::kTile, n),
-                     out_keys, out_pays, n, d0);
-}
-
-template <int P>
 cudaError_t launch(const void* a_keys, const void* a_pays, int64_t na,
                    const void* b_keys, const void* b_pays, int64_t nb, int W,
-                   void* split, void* out_keys, void* out_pays,
-                   cudaStream_t s) {
+                   int P, void* out_keys, void* out_pays, cudaStream_t s) {
+  const int nw = W + P;
+  const int R = mfx::merge_tile_rows(nw * 4);
   const int64_t n = na + nb;
-  const int64_t n_tiles = (n + mfx::kTile - 1) / mfx::kTile;
-  merge_partition_kernel<<<(unsigned)((n_tiles + 1 + kThreads - 1) / kThreads),
-                           kThreads, 0, s>>>(
-      (const uint32_t*)a_keys, na, (const uint32_t*)b_keys, nb, W, n_tiles,
-      (int64_t*)split);
-  cudaError_t err = cudaGetLastError();
+  const int64_t n_tiles = (n + R - 1) / R;
+  static int setup[mfx::kMaxDevices];
+  int sms = 0;
+  const cudaError_t err =
+      mfx::kernel_setup(merge_runs_kernel, kMaxSmemBytes, setup, &sms);
   if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)(W + P) * mfx::kTile * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(merge_tile_kernel<P>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  merge_tile_kernel<P><<<(unsigned)n_tiles, kThreads, smem, s>>>(
-      (const uint32_t*)a_keys, (const uint32_t*)a_pays, na,
-      (const uint32_t*)b_keys, (const uint32_t*)b_pays, nb, W,
-      (const int64_t*)split, (uint32_t*)out_keys, (uint32_t*)out_pays);
+  const size_t smem = mfx::merge_smem_bytes<uint32_t>(nw, R);
+  const mfx::Chunks c = mfx::merge_chunks(n_tiles, sms * kBlocksPerSm);
+  const RunPair runs = {(const uint32_t*)a_keys, (const uint32_t*)a_pays, na,
+                        (const uint32_t*)b_keys, (const uint32_t*)b_pays, nb,
+                        R};
+  const StoreWords store = {(uint32_t*)out_keys, (uint32_t*)out_pays, n, W};
+  merge_runs_kernel<<<c.blocks, mfx::kMergeThreads, smem, s>>>(
+      runs, store, W, nw, n_tiles, c.chunk);
   return cudaGetLastError();
 }
 
@@ -101,45 +110,31 @@ extern "C" int mfx_merge_max_words() { return mfx::kMaxWords; }
 
 extern "C" int mfx_merge_max_payloads() { return mfx::kMaxPays; }
 
-extern "C" int mfx_merge_tile_rows() { return mfx::kTile; }
+// Output rows per tile for rows of W key words and P payload words.
+extern "C" int mfx_merge_tile_rows(int W, int P) {
+  return mfx::merge_tile_rows((W + P) * 4);
+}
 
-// K2. split: scratch of ceil((na + nb) / kTile) + 1 int64 entries.
+// K2: one payload word per row.
 extern "C" int mfx_merge_sorted_runs(const void* a_keys, const void* a_vals,
                                      int64_t na, const void* b_keys,
                                      const void* b_vals, int64_t nb, int W,
-                                     void* split, void* out_keys,
-                                     void* out_vals, void* stream) {
+                                     void* out_keys, void* out_vals,
+                                     void* stream) {
   if (W < 1 || W > mfx::kMaxWords) return (int)cudaErrorInvalidValue;
   if (na + nb == 0) return (int)cudaSuccess;
-  return (int)launch<1>(a_keys, a_vals, na, b_keys, b_vals, nb, W, split,
-                        out_keys, out_vals, (cudaStream_t)stream);
+  return (int)launch(a_keys, a_vals, na, b_keys, b_vals, nb, W, 1, out_keys,
+                     out_vals, (cudaStream_t)stream);
 }
 
-// K3. Payloads are [P, n] word-major arrays (ignored when P == 0); split as
-// for K2.
+// K3. Payloads are [P, n] word-major arrays (ignored when P == 0).
 extern "C" int mfx_merge_sorted_runs_onepass(
     const void* a_keys, const void* a_pays, int64_t na, const void* b_keys,
-    const void* b_pays, int64_t nb, int W, int P, void* split, void* out_keys,
+    const void* b_pays, int64_t nb, int W, int P, void* out_keys,
     void* out_pays, void* stream) {
   if (W < 1 || W > mfx::kMaxWords || P < 0 || P > mfx::kMaxPays)
     return (int)cudaErrorInvalidValue;
   if (na + nb == 0) return (int)cudaSuccess;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (P) {
-    case 0:
-      return (int)launch<0>(a_keys, a_pays, na, b_keys, b_pays, nb, W, split,
-                            out_keys, out_pays, s);
-    case 1:
-      return (int)launch<1>(a_keys, a_pays, na, b_keys, b_pays, nb, W, split,
-                            out_keys, out_pays, s);
-    case 2:
-      return (int)launch<2>(a_keys, a_pays, na, b_keys, b_pays, nb, W, split,
-                            out_keys, out_pays, s);
-    case 3:
-      return (int)launch<3>(a_keys, a_pays, na, b_keys, b_pays, nb, W, split,
-                            out_keys, out_pays, s);
-    default:
-      return (int)launch<4>(a_keys, a_pays, na, b_keys, b_pays, nb, W, split,
-                            out_keys, out_pays, s);
-  }
+  return (int)launch(a_keys, a_pays, na, b_keys, b_pays, nb, W, P, out_keys,
+                     out_pays, (cudaStream_t)stream);
 }

@@ -26,6 +26,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -127,23 +129,56 @@ def library() -> ctypes.CDLL:
             ]
             lib.mfx_filter_reads.restype = i32
             lib.mfx_merge_sorted_runs.argtypes = [
-                vp, vp, i64, vp, vp, i64, i32, vp, vp, vp, vp,
+                vp, vp, i64, vp, vp, i64, i32, vp, vp, vp,
             ]
             lib.mfx_merge_sorted_runs.restype = i32
             lib.mfx_merge_sorted_runs_onepass.argtypes = [
-                vp, vp, i64, vp, vp, i64, i32, i32, vp, vp, vp, vp,
+                vp, vp, i64, vp, vp, i64, i32, i32, vp, vp, vp,
             ]
             lib.mfx_merge_sorted_runs_onepass.restype = i32
             lib.mfx_sort_words2.argtypes = [vp, i64, vp, vp, vp]
             lib.mfx_sort_words2.restype = i32
             for fn in (lib.mfx_merge_max_words, lib.mfx_merge_max_payloads,
-                       lib.mfx_merge_tile_rows, lib.mfx_sort_tile_rows):
+                       lib.mfx_sort_tile_rows):
                 fn.argtypes = []
                 fn.restype = i32
+            lib.mfx_merge_tile_rows.argtypes = [i32, i32]
+            lib.mfx_merge_tile_rows.restype = i32
             lib.mfx_cuda_error_string.argtypes = [i32]
             lib.mfx_cuda_error_string.restype = ctypes.c_char_p
+            # the merge kernels' limits, read once: a ctypes call per launch
+            # would cost a microsecond each
+            lib.max_words = lib.mfx_merge_max_words()
+            lib.max_payloads = lib.mfx_merge_max_payloads()
             _lib = lib
         return _lib
+
+
+def host_library() -> str:
+    """Build the port's native host library (the C++ FASTQ reader, dedup
+    set, run merge and graph engines of ``native/``) unless a build of the
+    current sources exists; returns its path. The stages build it lazily at
+    first use; calling this first keeps the ``g++`` run out of a timed
+    stage. Raises when the compiler is missing or fails
+    (``native.fastq_native.last_build_seconds`` holds the build's time)."""
+    from ..native import fastq_native
+
+    return fastq_native.build()
+
+
+def launch(dev, fn, *args) -> int:
+    """Call the C entry point ``fn(*args, stream)`` with the CUDA device
+    ``dev`` (a ``torch.device`` with an index) current, on its current
+    stream; returns the launch's CUDA error code for :func:`check`.
+
+    A wrapper's host time is most of a short kernel's cost, so this path is
+    kept lean: the device guard is entered only when ``dev`` is not current
+    already, and the stream handle comes from the raw-stream query (an
+    integer, as ctypes wants it) instead of a ``torch.cuda.Stream`` object."""
+    if torch.cuda.current_device() == dev.index:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
 
 
 def check(err: int, what: str) -> None:

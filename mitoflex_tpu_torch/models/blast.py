@@ -24,10 +24,10 @@ import numpy as np
 import pandas as pd
 import torch
 
-from mitoflex_tpu.io import encoding
-from mitoflex_tpu.io.fasta import FastaRecord
-from mitoflex_tpu.models import codon
-from mitoflex_tpu.models.proteindb import ProteinRecord, parse_protein_id
+from ..io import encoding
+from ..io.fasta import FastaRecord
+from ..models import codon
+from ..models.proteindb import ProteinRecord, parse_protein_id
 
 from ..convert import host, to_device
 from ..ops import sw as sw_ops

@@ -24,10 +24,10 @@ import numpy as np
 import pandas as pd
 import torch
 
-from mitoflex_tpu.io import encoding
-from mitoflex_tpu.io.fasta import FastaRecord
-from mitoflex_tpu.models.hmm import ProfileHMM
-from mitoflex_tpu.utils.logger import logger
+from ..io import encoding
+from ..io.fasta import FastaRecord
+from ..models.hmm import ProfileHMM
+from ..utils.logger import logger
 
 from ..convert import host, to_device
 from ..ops import phmm as phmm_ops

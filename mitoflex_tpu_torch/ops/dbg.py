@@ -11,7 +11,7 @@ node table and the edges' endpoint ids come from one merge of the edges'
 prefixes (in order already, as the edge table is sorted) with their sorted
 suffixes (``kmer.union_ranks``, the one-pass merge kernel K3 on a card).
 ``graph_unitig_pass_host`` is the CPU device's path through the native C++
-engine (mitoflex_tpu/native/graph.cpp).
+engine (native/graph.cpp).
 """
 
 from __future__ import annotations
@@ -127,7 +127,7 @@ def graph_unitig_pass_host(keys: np.ndarray, counts: np.ndarray, k: int) -> Grap
     uint64): the native O(E + V) engine, whose ids and labels match the
     tensor pass exactly. Without the native library it runs the tensor pass
     on the CPU. keys: [E, W] uint32 valid rows; counts: [E]."""
-    from mitoflex_tpu.native import graph_native
+    from ..native import graph_native
 
     E, W = keys.shape
     nat = graph_native.graph_pass(keys, counts, k)
@@ -192,7 +192,7 @@ def unitig_set_from_pass(gp: GraphPass, k: int) -> UnitigSet:
     n = gp.n_nodes
     node_keys = np.stack(gp.node_words, axis=1)
     if n > 0 and gp.order is not None and node_keys.shape[1] <= 2 and k <= 31:
-        from mitoflex_tpu.native import graph_native
+        from ..native import graph_native
 
         nat = graph_native.unitig_build(
             gp.order, gp.offset, gp.link_count, gp.is_cycle, node_keys, k,

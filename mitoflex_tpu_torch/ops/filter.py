@@ -120,14 +120,13 @@ def filter_reads(
     keep = torch.empty(B, dtype=torch.bool, device=dev)
     h1 = torch.empty(B, dtype=torch.int32, device=dev)
     h2 = torch.empty(B, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = kernels.library().mfx_filter_reads(
-            seqs.data_ptr(), quals.data_ptr(), lengths.data_ptr(),
-            cutoffs.data_ptr(), p1.data_ptr(), p2.data_ptr(), B, L,
-            int(ns_valve), int(quality_valve), keep.data_ptr(), h1.data_ptr(),
-            h2.data_ptr(), stream,
-        )
+    err = kernels.launch(
+        dev, kernels.library().mfx_filter_reads,
+        seqs.data_ptr(), quals.data_ptr(), lengths.data_ptr(),
+        cutoffs.data_ptr(), p1.data_ptr(), p2.data_ptr(), B, L,
+        int(ns_valve), int(quality_valve), keep.data_ptr(), h1.data_ptr(),
+        h2.data_ptr(),
+    )
     kernels.check(err, "filter_reads")
     filter_reads.launches += 1
     return keep, h1, h2

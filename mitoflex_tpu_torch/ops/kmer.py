@@ -444,7 +444,7 @@ def merge_sorted_counts(
     if len(b_keys) == 0:
         return a_keys, a_counts
     if op in ("sum", "max") and len(a_keys) + len(b_keys) >= 4096:
-        from mitoflex_tpu.native import merge_native
+        from ..native import merge_native
 
         nat = merge_native.merge_counts(a_keys, a_counts, b_keys, b_counts, op)
         if nat is not None:

@@ -27,8 +27,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from mitoflex_tpu.io import encoding
-from mitoflex_tpu.io.fasta import FastaRecord
+from ..io import encoding
+from ..io.fasta import FastaRecord
 
 from .. import device as device_mod
 from ..convert import host, to_device

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mitoflex_tpu.models.hmm import ProfileHMM
+from ..models.hmm import ProfileHMM
 
 from .sw import prefix_argmax
 

@@ -21,6 +21,19 @@ from .. import kernels
 
 _SIGN = -(2**31)  # int32 sign bit: x ^ _SIGN orders signed as x orders unsigned
 
+# Tile sizes of the kernels, mirrored here so that tests and callers can pick
+# shapes around them without a built library (the smoke run holds them
+# against the library's own mfx_sort_tile_rows / mfx_merge_tile_rows).
+SORT_TILE_KEYS = 8192  # keys a block of csrc/sort.cu sorts; runs merge from there
+
+
+def merge_tile_rows(W: int, P: int) -> int:
+    """Output rows per tile of the merge kernels for W key words and P
+    payload words (csrc/merge_path.cuh: merge_tile_rows)."""
+    row_bytes = 4 * (W + P)
+    return 4096 if row_bytes <= 12 else 2048 if row_bytes <= 24 \
+        else 1024 if row_bytes <= 48 else 512
+
 
 def _pair_key(hi: torch.Tensor, lo: Optional[torch.Tensor]) -> torch.Tensor:
     """One int64 sort key whose signed order is the unsigned lexicographic
@@ -94,26 +107,24 @@ def merge_sorted_runs(
     W = a_keys.shape[0]
     for name, keys, vals in (("a", a_keys, a_vals), ("b", b_keys, b_vals)):
         _check_words(what, f"{name} keys", keys, W, None, dev)
+        if vals.dim() != 1:
+            raise ValueError(f"{what}: {name} payload must be a vector, got "
+                             f"{tuple(vals.shape)}")
         _check_words(what, f"{name} payload", vals[None], 1, keys.shape[1], dev)
     lib = kernels.library()
-    if W > lib.mfx_merge_max_words():
-        raise ValueError(f"{what}: {W} key words exceed the kernel's "
-                         f"{lib.mfx_merge_max_words()}")
+    if not 1 <= W <= lib.max_words:
+        raise ValueError(f"{what}: {W} key words; the kernel takes 1 to "
+                         f"{lib.max_words}")
     na, nb = a_keys.shape[1], b_keys.shape[1]
     n = na + nb
     out_keys = torch.empty((W, n), dtype=torch.int32, device=dev)
     out_vals = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out_keys, out_vals
-    split = torch.empty(-(-n // lib.mfx_merge_tile_rows()) + 1, dtype=torch.int64,
-                        device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mfx_merge_sorted_runs(
-            a_keys.data_ptr(), a_vals.data_ptr(), na, b_keys.data_ptr(),
-            b_vals.data_ptr(), nb, W, split.data_ptr(), out_keys.data_ptr(),
-            out_vals.data_ptr(), stream,
-        )
+    err = kernels.launch(dev, lib.mfx_merge_sorted_runs,
+                  a_keys.data_ptr(), a_vals.data_ptr(), na, b_keys.data_ptr(),
+                  b_vals.data_ptr(), nb, W, out_keys.data_ptr(),
+                  out_vals.data_ptr())
     kernels.check(err, what)
     merge_sorted_runs.launches += 1
     return out_keys, out_vals
@@ -154,25 +165,20 @@ def merge_sorted_runs_onepass(
         _check_words(what, f"{name} keys", keys, W, None, dev)
         _check_words(what, f"{name} payloads", pays, P, keys.shape[1], dev)
     lib = kernels.library()
-    if not 1 <= W <= lib.mfx_merge_max_words() or P > lib.mfx_merge_max_payloads():
+    if not 1 <= W <= lib.max_words or P > lib.max_payloads:
         raise ValueError(f"{what}: {W} key words and {P} payload words; the "
-                         f"kernel takes 1 to {lib.mfx_merge_max_words()} and 0 "
-                         f"to {lib.mfx_merge_max_payloads()}")
+                         f"kernel takes 1 to {lib.max_words} and 0 to "
+                         f"{lib.max_payloads}")
     na, nb = a_keys.shape[1], b_keys.shape[1]
     n = na + nb
     out_keys = torch.empty((W, n), dtype=torch.int32, device=dev)
     out_pays = torch.empty((P, n), dtype=torch.int32, device=dev)
     if n == 0:
         return out_keys, out_pays
-    split = torch.empty(-(-n // lib.mfx_merge_tile_rows()) + 1, dtype=torch.int64,
-                        device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mfx_merge_sorted_runs_onepass(
-            a_keys.data_ptr(), a_pays.data_ptr(), na, b_keys.data_ptr(),
-            b_pays.data_ptr(), nb, W, P, split.data_ptr(), out_keys.data_ptr(),
-            out_pays.data_ptr(), stream,
-        )
+    err = kernels.launch(dev, lib.mfx_merge_sorted_runs_onepass,
+                  a_keys.data_ptr(), a_pays.data_ptr(), na, b_keys.data_ptr(),
+                  b_pays.data_ptr(), nb, W, P, out_keys.data_ptr(),
+                  out_pays.data_ptr())
     kernels.check(err, what)
     merge_sorted_runs_onepass.launches += 1
     return out_keys, out_pays
@@ -204,10 +210,8 @@ def sort_words2(words: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     scratch = torch.empty_like(words)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mfx_sort_words2(words.data_ptr(), n, scratch.data_ptr(),
-                                  out.data_ptr(), stream)
+    err = kernels.launch(dev, lib.mfx_sort_words2, words.data_ptr(), n,
+                  scratch.data_ptr(), out.data_ptr())
     kernels.check(err, what)
     sort_words2.launches += 1
     return out

@@ -16,12 +16,12 @@ from typing import Optional
 
 import torch
 
-from mitoflex_tpu.config import PipelineConfig
-from mitoflex_tpu.io import fasta, fastq
-from mitoflex_tpu.models.profiles import ProfileSet, get_profiles
-from mitoflex_tpu.models.taxonomy import Taxonomy, load_taxonomy
-from mitoflex_tpu.utils.logger import logger
-from mitoflex_tpu.utils.workdir import WorkDir
+from .config import PipelineConfig
+from .io import fasta, fastq
+from .models.profiles import ProfileSet, get_profiles
+from .models.taxonomy import Taxonomy, load_taxonomy
+from .utils.logger import logger
+from .utils.workdir import WorkDir
 
 from .device import DeviceLike, resolve_device
 

@@ -4,8 +4,8 @@ loop.
 Port of mitoflex_tpu/stages/assemble.py (single device). Per k: chunked
 k-mer counting into a device-resident LSM (``KmerCounter``: per-chunk
 scattered runs merged by the CUDA merge kernel on a card), the solid gate,
-the graph + unitig pass, the graph-cleaning fixpoint (the JAX package's
-jax-free ``stages/graph_clean``), local extension of contig ends through the
+the graph + unitig pass, the graph-cleaning fixpoint (the host
+numpy ``stages/graph_clean``), local extension of contig ends through the
 seed-vote mapper, and the inter-iteration depth filter with contig
 re-injection at the next k. The run's ``device`` is passed down explicitly;
 on the CPU the host formulations run (device.uses_host_mirrors).
@@ -19,12 +19,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mitoflex_tpu.config import AssembleConfig
-from mitoflex_tpu.io import encoding, fasta, fastq
-from mitoflex_tpu.io.prefetch import prefetch
-from mitoflex_tpu.stages import graph_clean
-from mitoflex_tpu.utils.helper import timed
-from mitoflex_tpu.utils.logger import logger
+from ..config import AssembleConfig
+from ..io import encoding, fasta, fastq
+from ..io.prefetch import prefetch
+from ..stages import graph_clean
+from ..utils.helper import timed
+from ..utils.logger import logger
 
 from .. import device as device_mod
 from ..convert import host, to_device, u32_numpy
@@ -60,7 +60,7 @@ class KmerCounter:
     (merge_sorted_counts). On the CPU each chunk is counted and merged on
     the host. Weighted chunks (contig re-injection) always take the exact
     host-table path. Past ``spill_rows`` host rows the host LSM moves to
-    disk buckets (mitoflex_tpu/ops/spill.py) and :meth:`merged_iter` merges
+    disk buckets (ops/spill.py) and :meth:`merged_iter` merges
     one key range at a time."""
 
     def __init__(self, k: int, canonical: bool = False,
@@ -88,7 +88,7 @@ class KmerCounter:
         self.peak_host_rows = max(self.peak_host_rows, self._host_rows + extra)
 
     def _activate_spill(self) -> None:
-        from mitoflex_tpu.ops.spill import BucketSpill
+        from ..ops.spill import BucketSpill
 
         self._spill = BucketSpill(
             kmer_ops.num_words(self.k), self.spill_buckets, self.spill_dir,

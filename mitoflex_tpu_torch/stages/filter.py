@@ -2,7 +2,7 @@
 
 Port of mitoflex_tpu/stages/filter.py: SE and PE filtering with N-count and
 quality-percentage rules, the optional keep-region trim, optional PE dedup
-(through the native hash set, mitoflex_tpu/native/dedup_native.py) and the
+(through the native hash set, native/dedup_native.py) and the
 Gbp truncation budget. The host streams fixed-shape batches; the per-base
 work runs on the run's device (ops/filter.py: the CUDA filter kernel on a
 card). Multi-device data parallelism is not ported yet (ROADMAP).
@@ -16,11 +16,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from mitoflex_tpu.config import FilterConfig
-from mitoflex_tpu.io import fastq
-from mitoflex_tpu.io.prefetch import prefetch
-from mitoflex_tpu.utils.helper import StageTimer, timed
-from mitoflex_tpu.utils.logger import logger
+from ..config import FilterConfig
+from ..io import fastq
+from ..io.prefetch import prefetch
+from ..utils.helper import StageTimer, timed
+from ..utils.logger import logger
 
 from ..convert import host, to_device, u32_numpy
 from ..ops import filter as filter_ops
@@ -64,7 +64,7 @@ class _DedupSet:
     open-addressing set."""
 
     def __init__(self) -> None:
-        from mitoflex_tpu.native.dedup_native import NativeDedupSet
+        from ..native.dedup_native import NativeDedupSet
 
         self._set = NativeDedupSet()
 

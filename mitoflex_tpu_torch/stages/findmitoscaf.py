@@ -30,14 +30,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import pandas as pd
 
-from mitoflex_tpu.config import SearchConfig
-from mitoflex_tpu.io.fasta import FastaRecord, write_fasta
-from mitoflex_tpu.models.profiles import ProfileSet
-from mitoflex_tpu.models.proteindb import parse_protein_id
-from mitoflex_tpu.models.taxonomy import Taxonomy
-from mitoflex_tpu.ops.overlap import check_circular
-from mitoflex_tpu.utils.helper import timed
-from mitoflex_tpu.utils.logger import logger
+from ..config import SearchConfig
+from ..io.fasta import FastaRecord, write_fasta
+from ..models.profiles import ProfileSet
+from ..models.proteindb import parse_protein_id
+from ..models.taxonomy import Taxonomy
+from ..ops.overlap import check_circular
+from ..utils.helper import timed
+from ..utils.logger import logger
 
 from ..models import blast as blast_models
 from ..models import nhmmer

@@ -20,10 +20,10 @@ from typing import Dict, List, Tuple
 
 import pandas as pd
 
-from mitoflex_tpu.io import encoding
-from mitoflex_tpu.io.fasta import FastaRecord
-from mitoflex_tpu.utils.logger import logger
-from mitoflex_tpu.utils.seq import MERGED_MULTI_SENTINEL
+from ..io import encoding
+from ..io.fasta import FastaRecord
+from ..utils.logger import logger
+from ..utils.seq import MERGED_MULTI_SENTINEL
 
 from ..models import blast
 

@@ -1,7 +1,7 @@
 """Mate-pair scaffolding.
 
 Port of mitoflex_tpu/stages/scaffold.py onto the port's mapper (the rest
-of the module is jax-free and unchanged in behaviour). It replaces the
+of the module is host code, unchanged in behaviour). It replaces the
 reference's vendored SOAPdenovo2 path (assemble/
 scaffold_wrapper.py:17-91 driving SOAPdenovo-fusion / 127mer map / scaff,
 then scaf2mega): paired-end reads whose mates land on different contigs
@@ -30,13 +30,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from mitoflex_tpu.config import AssembleConfig
-from mitoflex_tpu.io import encoding, fastq
-from mitoflex_tpu.io.fasta import FastaRecord, load_fasta, write_fasta
-from mitoflex_tpu.ops.overlap import check_circular, seq_overlap
-from mitoflex_tpu.utils.helper import timed
-from mitoflex_tpu.utils.logger import logger
-from mitoflex_tpu.utils.seq import MERGED_MULTI_SENTINEL
+from ..config import AssembleConfig
+from ..io import encoding, fastq
+from ..io.fasta import FastaRecord, load_fasta, write_fasta
+from ..ops.overlap import check_circular, seq_overlap
+from ..utils.helper import timed
+from ..utils.logger import logger
+from ..utils.seq import MERGED_MULTI_SENTINEL
 
 from ..ops import mapper
 

@@ -21,7 +21,21 @@ from mitoflex_tpu.ops import psort as jax_psort
 from mitoflex_tpu_torch import convert
 from mitoflex_tpu_torch.ops import kmer as port_kmer
 from mitoflex_tpu_torch.ops import psort as port_psort
+from mitoflex_tpu_torch.testing import kernel_cases
 from tests.test_torch_kmer import _reads
+
+
+N_MERGE_CASES, N_SORT_CASES = 56, 12
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_cases():
+    return list(kernel_cases.merge_cases()), list(kernel_cases.sort_cases())
+
+
+def _bits(x):
+    """uint32 array -> int32 tensor of the same bits, same layout."""
+    return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
 
 
 def _words(x):
@@ -59,7 +73,8 @@ def test_sort_words2_matches_pallas_bitonic_sort2():
 @pytest.mark.parametrize("n", [0, 1, 2047, 2049, 5000])
 def test_sort_words2_any_length(n):
     """Exact against numpy's lexsort at lengths that are not powers of two
-    (the CUDA kernel's tiles are 2048 keys; the plain version has no tiles)."""
+    (the plain version has no tiles; lengths around the CUDA kernel's
+    8192-key tile are in test_sort_edge_cases)."""
     rng = np.random.default_rng(n)
     w = rng.integers(0, 2**32, (n, 2), dtype=np.uint64).astype(np.uint32)
     w[: n // 3, 0] = 0xFFFFFFFF
@@ -188,3 +203,54 @@ def test_union_ranks_is_unique_of_concatenation(W):
     table = _rows(got)
     np.testing.assert_array_equal(table[rank_a.numpy()], a)
     np.testing.assert_array_equal(table[rank_b.numpy()], b)
+
+
+@pytest.mark.parametrize("i", range(N_MERGE_CASES))
+def test_merge_edge_cases(i):
+    """Row for row: the shapes the redesigned merge tile makes risky (run
+    lengths of tile - 1, tile and tile + 1 rows, an empty run, 1 to 16 key
+    words, 0 to 4 payload words, rows that tie deep into the key, more than
+    a tile of one key) through K3's wrapper and plain version, and K2's
+    where there is one payload word, against numpy's stable lexsort of the
+    concatenation. On the CPU the wrappers take the plain versions; the
+    smoke run on a card runs the same cases through the kernels."""
+    name, ak, ap, bk, bp = _edge_cases()[0][i]
+    want_keys, want_pays = kernel_cases.merged(ak, ap, bk, bp)
+    args = [_bits(x) for x in (ak, ap, bk, bp)]
+    for fn in (port_psort.merge_sorted_runs_onepass_ref,
+               port_psort.merge_sorted_runs_onepass):
+        keys, pays = fn(*args)
+        np.testing.assert_array_equal(convert.u32_numpy(keys), want_keys, err_msg=name)
+        np.testing.assert_array_equal(convert.u32_numpy(pays), want_pays, err_msg=name)
+    if ap.shape[0] == 1:
+        keys, vals = port_psort.merge_sorted_runs(args[0], args[1][0], args[2], args[3][0])
+        np.testing.assert_array_equal(convert.u32_numpy(keys), want_keys, err_msg=name)
+        np.testing.assert_array_equal(convert.u32_numpy(vals), want_pays[0], err_msg=name)
+
+
+@pytest.mark.parametrize("i", range(N_SORT_CASES))
+def test_sort_edge_cases(i):
+    """Exact: sort lengths around the 16-key thread run and the 8192-key
+    block tile of the redesigned K4 (and no multiple of either), duplicates,
+    all-ones keys and more than a tile of one key, against numpy."""
+    name, words = _edge_cases()[1][i]
+    want = words[:, kernel_cases.lexsort_columns(words)]
+    for fn in (port_psort.sort_words2_ref, port_psort.sort_words2):
+        np.testing.assert_array_equal(convert.u32_numpy(fn(_bits(words))), want,
+                                      err_msg=name)
+
+
+def test_edge_case_catalogue_and_tile_sizes():
+    """The catalogue has the sizes the two tests above index, is the same
+    on every call, and is built around the tile sizes the kernels use."""
+    merges, sorts = _edge_cases()
+    assert (len(merges), len(sorts)) == (N_MERGE_CASES, N_SORT_CASES)
+    again = list(kernel_cases.merge_cases())
+    assert all(np.array_equal(x, y) for a, b in zip(merges, again)
+               for x, y in zip(a[1:], b[1:]))
+    assert port_psort.SORT_TILE_KEYS == 8192
+    assert [port_psort.merge_tile_rows(W, P) for W, P in
+            ((1, 0), (2, 1), (2, 2), (4, 1), (8, 1), (8, 4), (16, 4))] == \
+        [4096, 4096, 2048, 2048, 1024, 1024, 512]
+    names = [m[0] for m in merges]
+    assert "W=16 P=4 513+511" in names and "W=2 P=1 0+4097" in names

@@ -192,7 +192,8 @@ def test_slice_through_findmitoscaf_matches_jax(fms_inputs, jax_picked, monkeypa
 def test_port_runs_without_jax(tmp_path):
     """In a fresh interpreter the port filters a batch, merges two runs,
     imports every ported module and runs its CLI's filter and findmitoscaf,
-    and jax never enters sys.modules."""
+    and neither jax nor any module of the JAX package (``mitoflex_tpu`` or
+    ``mitoflex_tpu.*``) enters sys.modules."""
     rng = np.random.default_rng(1)
     reads = synth.shotgun_reads(rng, synth.random_genome(rng, 800), 50, read_len=80)
     fq = synth.write_fastq(tmp_path / "in.fq", reads)
@@ -219,7 +220,10 @@ rc = main(["filter", "--fastq1", {fq!r}, "--workname", "w", "--basedir",
 rc_np = main(["annotate", "--fastafile", "x.fa"])
 rc_mods = main(["load_modules"])
 rc_fms = main({fms_args!r})
-print(json.dumps({{"jax": "jax" in sys.modules, "rc": rc, "rc_np": rc_np,
+jax_pkg = sorted(m for m in sys.modules
+                 if m == "mitoflex_tpu" or m.startswith("mitoflex_tpu."))
+print(json.dumps({{"jax": "jax" in sys.modules, "jax_pkg": jax_pkg, "rc": rc,
+                  "rc_np": rc_np,
                   "rc_mods": rc_mods, "rc_fms": rc_fms, "rows": merged[0].shape[1],
                   "keep": int(keep.sum())}}))
 """
@@ -230,11 +234,45 @@ print(json.dumps({{"jax": "jax" in sys.modules, "rc": rc, "rc_np": rc_np,
                        cwd=str(tmp_path), env=env, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out == {"jax": False, "rc": 0, "rc_np": 3, "rc_mods": 0, "rc_fms": 0,
+    assert out == {"jax": False, "jax_pkg": [], "rc": 0, "rc_np": 3, "rc_mods": 0,
+                   "rc_fms": 0,
                    "rows": 2 * 64 * 12, "keep": out["keep"]}
     picked = tmp_path / "f" / "f.result" / "f.picked.fa"
     assert "".join(picked.read_text().split("\n")[1:]) == fake.genome
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+
+
+def test_chip_smoke_imports_only_the_port():
+    """The smoke script imports as a module without a card, and neither the
+    import nor any import statement in its source reaches jax, the JAX
+    package or the test suite: numpy, torch, the standard library and
+    mitoflex_tpu_torch only."""
+    import ast
+
+    code = """
+import json, sys
+import chip_smoke
+print(json.dumps(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                        or m == "mitoflex_tpu" or m.startswith("mitoflex_tpu.")
+                        or m == "tests" or m.startswith("tests."))))
+"""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       cwd=REPO, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0
+            roots.add(node.module.split(".")[0])
+    assert {"numpy", "torch", "mitoflex_tpu_torch"} <= roots
+    assert roots - {"numpy", "torch", "mitoflex_tpu_torch"} <= set(sys.stdlib_module_names)
 
 
 def test_kernel_loader_needs_no_nvcc():
