@@ -8,8 +8,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    mitoflex_tpu_torch/csrc and the native host library from
    mitoflex_tpu_torch/native (both timed), so that neither build lands in
    a timed stage.
-2. K1, the read-filter kernel, against its plain PyTorch version at
-   65536 x 256 (random reads plus edge rows): bit-equal; both timed.
+2. K1, the read-filter kernel, against its plain PyTorch version on the
+   seeded cases of mitoflex_tpu_torch/testing/kernel_cases.py (its vector
+   path, and its scalar path through row widths that are no multiple of 16
+   and rows that are not 16-byte aligned; SE and PE cutoffs, odd codes and
+   valves) and at 65536 x 256 (random reads plus edge rows): bit-equal.
+   One call is one launch and never calls ``quality_cutoffs``. Timed at
+   65536 x 256 and at the golden batch (8192 x 160): one wrapper call, and
+   the device's own time from 20 raw launches on preallocated outputs
+   between one pair of events; the plain version timed too.
 3. K2, the sorted-run merge kernel, against its plain version at 2 x 2**21
    rows (W = 2 and W = 8 key words) and 2 x 2**25 rows (W = 2, the device
    LSM's cap): output sorted, keys exact, per-key payload sums equal; both
@@ -29,17 +36,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    (8192 reads x 129 windows = 1,056,768 keys), at the default chunk
    (16384 reads x 225 windows = 3,686,400 keys) and at 2**24 keys: equal;
    both timed.
-6. The slice filter -> assemble -> findmitoscaf at the golden-sample
-   volume: the synthetic profile set's genome
-   (mitoflex_tpu_torch/testing/profile_fixture.py,
-   spacer 2440: a ~13.2 kb circle with four PCGs) at 400x plus two 8 kb
-   nuclear decoys at 12x, 150 bp pairs, insert 300, 1% errors, from
-   --seed, through the port's PipelineContext(device="cuda"), run_filter,
-   run_assemble and run_findmitoscaf. All four kernels' launch counters are
+6. The slice filter -> assemble -> findmitoscaf -> annotate at the
+   golden-sample volume: the synthetic profile set's genome
+   (mitoflex_tpu_torch/testing/profile_fixture.py, spacer 2440,
+   link_rna=True: a ~15.6 kb circle with four PCGs, four tRNAs and two
+   rRNAs whose covariance models, CLEN 72, 950 and 1100, the CM fixture
+   writes) at 400x plus two 8 kb nuclear decoys at 12x, 150 bp pairs,
+   insert 300, 1% errors, from --seed, through the port's
+   PipelineContext(device="cuda"), run_filter, run_assemble,
+   run_findmitoscaf and run_annotate. All four kernels' launch counters are
    zeroed just before and read just after; each must be > 0. The picked
    FASTA must hold a circular scaffold equal to the planted genome up to
    rotation and strand once its (k-1)-base terminal duplication is
-   dropped, and the manifest must list all four PCGs as found.
+   dropped, and the manifest must list all four PCGs as found. annotate's
+   ``locs.json`` must list the four PCGs, the planted tRNAs under
+   ``trn<letter>`` and ``rrnS`` / ``rrnL``, each on its planted strand,
+   and each annotated fragment must be the planted sequence within 2
+   codons at either end (which places it up to the circle's rotation);
+   the stage's wall and its parts are printed.
 7. K2 again on the runs that the golden run's k-mer LSM really merged
    (recorded during phase 6): keys exact, per-key payload sums equal; each
    shape timed. K3 again on the edge tables that the golden run's graph
@@ -47,10 +61,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    to its plain version and timed alone; the node step (node table and
    endpoint ids) and the whole graph pass timed with K3 and with the
    sort-and-join formulation that K3 replaced.
-8. A small slice through findmitoscaf run twice, on the card and on the
-   CPU (the host formulations, held against the JAX package by
-   tests/test_torch_slice.py): the clean FASTQs, the contigs and the picked
-   FASTA must be byte-identical.
+8. A small slice through annotate run twice, on the card and on the CPU
+   (the host formulations, held against the JAX package by
+   tests/test_torch_slice.py): the clean FASTQs, the contigs, the picked
+   FASTA, ``locs.json`` and both annotated FASTAs must be byte-identical.
+9. ``genewise_align`` and ``cyk_banded_device`` on the card against the
+   CPU on seeded batches (frameshifts, stops, a window that holds its gene
+   twice; the planted, a mutated and a twice-planted consensus of the
+   tRNA-size and the rRNA-size fixture models): coordinates, frameshift
+   counts and argmax cells equal, scores within 1e-4 (genewise) and 1e-3
+   bits (CYK). The CYK contract: host ``cyk_banded`` <= device everywhere,
+   device <= exact CYK at the tRNA size, equal on the planted consensus.
+   Each is timed (host clock around a call that ends in a synchronise)
+   with its eager launches a call (``cudaLaunchKernel`` under
+   torch.profiler).
 
 Kernel times are medians of CUDA-event-timed repeats after a warm-up; one
 repeat is one call of the kernel's wrapper between two events, so it holds
@@ -122,10 +146,48 @@ def _bound_ms(*tensors) -> float:
 
 
 # ------------------------------------------------------------------ K1
+def _cuda_ms_back_to_back(fn, calls: int = 20, repeats: int = 5) -> float:
+    """Median milliseconds per call of ``calls`` calls enqueued between one
+    pair of events: the device's own time where the host enqueues faster."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def _time_filter(F, t, args) -> dict:
+    """Wrapper, raw-launch and plain times and the bound at one shape."""
+    B = t[0].shape[0]
+    keep = torch.empty(B, dtype=torch.bool, device=t[0].device)
+    hashes = torch.empty((2, B), dtype=torch.int32, device=t[0].device)
+    got = F.filter_reads(*t[:3], *args)
+    return {
+        "ms": _cuda_ms(lambda: F.filter_reads(*t[:3], *args)),
+        "raw_ms": _cuda_ms_back_to_back(
+            lambda: F.launch_filter(*t[:3], t[2], *args, keep, hashes)),
+        "plain_ms": _cuda_ms(lambda: F.filter_reads_ref(*t[:3], *args)),
+        # bases, qualities, lengths and the int32 cutoff lengths in; keep,
+        # h1, h2 out
+        "bound_ms": _bound_ms(*t[:3], t[2], *got),
+    }
+
+
 def check_filter(dev) -> dict:
     from mitoflex_tpu_torch.io import encoding
     from mitoflex_tpu_torch.ops import filter as F
+    from mitoflex_tpu_torch.testing import kernel_cases
 
+    n_cases = kernel_cases.check_filter(dev)
+    torch.cuda.synchronize()
     B, L = 65536, 256
     rng = np.random.default_rng(1)
     seqs = rng.integers(0, 5, size=(B, L)).astype(np.int8)
@@ -147,24 +209,55 @@ def check_filter(dev) -> dict:
     args = (10, 55, 0.2)
     err = 0
     for cl in (None, t[3]):
-        got = F.filter_reads(*t[:3], *args, cl)
         want = F.filter_reads_ref(*t[:3], *args, cl)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+        # rows as they are (the vector path) and one byte off 16-byte
+        # alignment (the scalar path)
+        off = [torch.empty(B * L + 1, dtype=torch.int8, device=dev)[1:].view(B, L)
+               .copy_(x) for x in t[:2]]
+        for rows in (t[:2], off):
+            got = F.filter_reads(*rows, t[2], *args, cl)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
     keep = F.filter_reads(*t[:3], *args)[0][:6].tolist()
     if err != 0 or keep != [True, False, True, False, True, False]:
         raise AssertionError(f"K1 disagrees with filter_reads_ref: max err {err}, "
                              f"edge rows {keep}")
-    ms = _cuda_ms(lambda: F.filter_reads(*t[:3], *args))
-    plain_ms = _cuda_ms(lambda: F.filter_reads_ref(*t[:3], *args))
-    # seqs, quals, lengths and the float32 cutoffs in; keep, h1, h2 out
-    bound_ms = _bound_ms(*t[:3], t[2].to(torch.float32), *got)
-    _log(f"K1 filter_reads {B}x{L}: bit-equal to filter_reads_ref (SE and PE "
-         f"cutoffs); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-         f"bound {bound_ms:.4f} ms, {B * L / ms / 1e6:.2f} Gbase/s")
-    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+    # one call on the card is one launch, and the cutoff is the kernel's own
+    real_cutoffs, before = F.quality_cutoffs, F.filter_reads.launches
+
+    def no_cutoffs(*a, **k):
+        raise AssertionError("filter_reads called quality_cutoffs on the CUDA path")
+
+    F.quality_cutoffs = no_cutoffs
+    try:
+        F.filter_reads(*t[:3], *args, t[3])
+    finally:
+        F.quality_cutoffs = real_cutoffs
+    if F.filter_reads.launches != before + 1:
+        raise AssertionError("one filter_reads call must be one launch")
+    r = _time_filter(F, t, args)
+    gB, gL = 8192, 160   # the golden run's read_chunk x max_read_len
+    g = [torch.from_numpy(x).to(dev) for x in (
+        rng.integers(0, 5, size=(gB, gL)).astype(np.int8),
+        rng.integers(35, 74, size=(gB, gL)).astype(np.int8),
+        rng.integers(1, gL + 1, size=gB).astype(np.int32))]
+    if not all(torch.equal(a, b) for a, b in zip(
+            F.filter_reads(*g, *args), F.filter_reads_ref(*g, *args))):
+        raise AssertionError(f"K1 disagrees with filter_reads_ref at {gB}x{gL}")
+    golden = _time_filter(F, g, args)
+    _log(f"K1 filter_reads: bit-equal to filter_reads_ref on {n_cases} seeded cases "
+         f"(vector and scalar paths, SE and PE cutoffs) and at {B}x{L} with the edge "
+         f"rows on both paths; one launch a call, no quality_cutoffs")
+    for shape, x in ((f"{B}x{L}", r), (f"{gB}x{gL}", golden)):
+        _log(f"K1 filter_reads {shape}: wrapper call {x['ms']:.4f} ms, raw launch "
+             f"{x['raw_ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, bound "
+             f"{x['bound_ms']:.4f} ms ({x['bound_ms'] / x['raw_ms']:.0%} of the "
+             f"bound raw, {x['bound_ms'] / x['ms']:.0%} a wrapper call)")
+    return {"max_abs_err": float(err), **r, "bound_by": "bytes", "library_ms": None,
+            "golden_ms": golden["ms"], "golden_raw_ms": golden["raw_ms"],
+            "golden_plain_ms": golden["plain_ms"],
+            "golden_bound_ms": golden["bound_ms"]}
 
 
 # ------------------------------------------------------------------ K2
@@ -495,9 +588,10 @@ def _fastq_pair(rng, tmp: str, genome: str, decoys, cov: int, decoy_cov: int,
     return f1, f2, sum(len(x[0]) + len(y[0]) for x, y in pairs)
 
 
-def _planted_circle(fa_path: str, genome: str, klist) -> str:
-    """The id of a contig flagged circular that is the genome up to rotation
-    and strand after its (k-1)-base terminal duplication; '' if none."""
+def _planted_circle(fa_path: str, genome: str, klist):
+    """(id, sequence without the duplication) of a contig flagged circular
+    that is the genome up to rotation and strand after its (k-1)-base
+    terminal duplication; None if there is none."""
     from mitoflex_tpu_torch.io import encoding, fasta
 
     doubled = genome + genome
@@ -508,8 +602,8 @@ def _planted_circle(fa_path: str, genome: str, klist) -> str:
             core = rec.seq[: len(rec.seq) - (k - 1)]
             if len(core) == len(genome) and (
                     core in doubled or encoding.revcomp_str(core) in doubled):
-                return rec.id
-    return ""
+                return rec.id, core
+    return None
 
 
 def _slice_config(tmp: str, workname: str, golden: bool, fake):
@@ -556,12 +650,13 @@ def run_golden_slice(seed: int, tmp: str):
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
-    fake = profile_fixture.build(pathlib.Path(tmp), rng, spacer=2440)
+    fake = profile_fixture.build(pathlib.Path(tmp), rng, spacer=2440, link_rna=True)
     genome = fake.genome
     decoys = [synth.random_genome(rng, 8000) for _ in range(2)]
     f1, f2, bases = _fastq_pair(rng, tmp, genome, decoys, cov=400, decoy_cov=12,
                                 read_len=150, insert=300, error=0.01)
     _log(f"slice data: {len(genome)} bp genome with {len(profile_fixture.GENES)} PCGs, "
+         f"{len(fake.rna_pos)} planted RNAs, "
          f"{bases} bases ({os.path.getsize(f1) * 2 >> 20} MiB FASTQ) made in "
          f"{time.perf_counter() - t0:.2f} s")
     cfg = _slice_config(tmp, "golden", True, fake)
@@ -601,6 +696,10 @@ def run_golden_slice(seed: int, tmp: str):
         found = pipeline.run_findmitoscaf(ctx, contigs)
         torch.cuda.synchronize()
         find_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        annotated = pipeline.run_annotate(ctx, found.path)
+        torch.cuda.synchronize()
+        annotate_s = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
     finally:
         dbg.graph_unitig_pass = graph_pass
@@ -610,7 +709,11 @@ def run_golden_slice(seed: int, tmp: str):
          f"pairs kept), assemble {assemble_s:.3f} s (incl. local extension and "
          f"scaffolding), findmitoscaf {find_s:.3f} s (nhmmer {w['nhmmer']:.3f} s, "
          f"blastn/tblastn with SW {w['blast']:.3f} s, rest "
-         f"{find_s - w['nhmmer'] - w['blast']:.3f} s); kernel launches "
+         f"{find_s - w['nhmmer'] - w['blast']:.3f} s), annotate {annotate_s:.3f} s "
+         f"(tblastn {annotated.walls['tblastn']:.3f} s, genewise "
+         f"{annotated.walls['genewise']:.3f} s, tRNA {annotated.walls['trna']:.3f} s, "
+         f"rRNA {annotated.walls['rrna']:.3f} s, rest "
+         f"{annotate_s - sum(annotated.walls.values()):.3f} s); kernel launches "
          f"{json.dumps(launches)}; peak device memory "
          f"{torch.cuda.max_memory_allocated() >> 20} MiB")
     if min(launches.values()) <= 0:
@@ -623,10 +726,77 @@ def run_golden_slice(seed: int, tmp: str):
     if manifest["found_pcgs"] != profile_fixture.GENES or manifest["missing_pcgs"]:
         raise AssertionError(f"PCGs found {manifest['found_pcgs']}, missing "
                              f"{manifest['missing_pcgs']}")
-    _log(f"slice output: picked scaffold {hit} is the planted {len(genome)} bp circle "
+    _log(f"slice output: picked scaffold {hit[0]} is the planted {len(genome)} bp circle "
          f"(rotation/strand, after the terminal duplication); PCGs found "
          f"{manifest['found_pcgs']}")
+    _check_annotation(fake, annotated, os.path.dirname(annotated.path),
+                      cfg.run.workname, "golden slice", hit[1])
     return launches, passes, merges
+
+
+ANNOTATION_TOL_CODONS = 2
+
+
+def _check_annotation(fake, annotated, stage_dir: str, workname: str, what: str,
+                      scaffold: str) -> None:
+    """``locs.json`` lists every planted gene under its name, on its
+    planted strand, and its annotated fragment is the planted sequence
+    within ANNOTATION_TOL_CODONS codons at either end (which fixes its
+    start and end up to the circle's rotation). ``scaffold`` is the picked
+    circle as it was linearised; the one gene that its two ends may cut in
+    two is named and left out."""
+    from mitoflex_tpu_torch.io import encoding, fasta
+
+    with open(os.path.join(stage_dir, "locs.json")) as f:
+        locs = json.load(f)
+    frags = {}
+    for kind in ("cds", "rna"):
+        for rec in fasta.load_fasta(os.path.join(
+                stage_dir, f"{workname}.annotated.{kind}.fa")):
+            frags[str(rec.attrs["gene"])] = rec.seq
+    tol = 3 * ANNOTATION_TOL_CODONS
+    planted = {**fake.gene_pos, **fake.rna_pos}
+    orientation, worst, cut = set(), 0, []
+    for gene, (s, e, strand) in planted.items():
+        whole = fake.genome[s:e]
+        if whole not in scaffold and encoding.revcomp_str(whole) not in scaffold:
+            cut.append(gene)
+            continue
+        if gene not in locs or gene not in frags:
+            raise AssertionError(f"{what}: planted {gene} missing from locs.json "
+                                 f"(has {sorted(locs)})")
+        want = fake.genome[s:e]
+        core = want[tol: len(want) - tol]
+        frag = frags[gene]
+        if core in frag:
+            o = 1
+        elif encoding.revcomp_str(core) in frag:
+            o = -1
+        else:
+            raise AssertionError(f"{what}: the fragment annotated as {gene} is not "
+                                 f"the planted sequence")
+        if abs(len(frag) - len(want)) > 2 * tol:
+            raise AssertionError(f"{what}: {gene} annotated {len(frag)} bp, planted "
+                                 f"{len(want)} bp")
+        start, end, kind, _, sign = locs[gene]
+        if end - start + 1 != len(frag) or (sign == "+") != (strand * o > 0):
+            raise AssertionError(f"{what}: {gene} at {locs[gene]} does not match its "
+                                 f"fragment or its planted strand")
+        want_kind = 0 if gene in fake.gene_pos else (2 if gene.startswith("rrn") else 1)
+        if kind != want_kind:
+            raise AssertionError(f"{what}: {gene} has type {kind}")
+        orientation.add(o)
+        worst = max(worst, abs(len(frag) - len(want)))
+    if len(orientation) != 1 or len(cut) > 1:
+        raise AssertionError(f"{what}: genes disagree on the scaffold's orientation, "
+                             f"or more than one is cut by its ends: {cut}")
+    extra = sorted(set(locs) - set(planted))
+    _log(f"{what} annotation: locs.json lists {len(planted) - len(cut)} of "
+         f"{len(planted)} planted genes ({sorted(set(planted) - set(cut))}; cut in two "
+         f"by the linearised circle's ends: {cut}) on their planted strands, "
+         f"fragments equal to the "
+         f"planted sequences within {ANNOTATION_TOL_CODONS} codons at either end "
+         f"(largest length difference {worst} nt); other entries: {extra}")
 
 
 def run_small_slice_vs_cpu(seed: int, tmp: str) -> None:
@@ -634,7 +804,8 @@ def run_small_slice_vs_cpu(seed: int, tmp: str) -> None:
     from mitoflex_tpu_torch.testing import profile_fixture, synth
 
     rng = np.random.default_rng(seed + 1)
-    fake = profile_fixture.build(pathlib.Path(tmp) / "small", rng, spacer=600)
+    fake = profile_fixture.build(pathlib.Path(tmp) / "small", rng, spacer=600,
+                                 link_rna=True, rrna_clen=(200, 230))
     decoys = [synth.random_genome(rng, 1500)]
     f1, f2, _ = _fastq_pair(rng, tmp, fake.genome, decoys, cov=60, decoy_cov=20,
                             read_len=100, insert=300, error=0.005)
@@ -645,16 +816,188 @@ def run_small_slice_vs_cpu(seed: int, tmp: str) -> None:
         res = pipeline.run_filter(ctx, f1, f2)
         contigs = pipeline.run_assemble(ctx, res.clean1, res.clean2)
         picked[run] = pipeline.run_findmitoscaf(ctx, contigs).path
+        annotated = pipeline.run_annotate(ctx, picked[run])
+        stage = os.path.dirname(annotated.path)
+        if run == "cuda":
+            circle = _planted_circle(picked[run], fake.genome, [21, 41])
+            if circle is None:
+                raise AssertionError("small slice: planted circle not picked")
+            _check_annotation(fake, annotated, stage, f"small_{run}", "small slice",
+                              circle[1])
         outs[run] = []
-        for p in (res.clean1, res.clean2, contigs, picked[run]):
+        for p in (res.clean1, res.clean2, contigs, picked[run], annotated.path,
+                  os.path.join(stage, f"small_{run}.annotated.cds.fa"),
+                  os.path.join(stage, f"small_{run}.annotated.rna.fa")):
             with open(p, "rb") as f:
                 outs[run].append(f.read())
     if outs["cuda"] != outs["cpu"]:
         raise AssertionError("small slice: outputs differ between CUDA and CPU")
-    if not _planted_circle(picked["cuda"], fake.genome, [21, 41]):
-        raise AssertionError("small slice: planted circle not picked")
-    _log("small slice: clean FASTQs, contigs and picked FASTA byte-identical on CUDA "
-         "and CPU")
+    _log("small slice: clean FASTQs, contigs, picked FASTA, locs.json and both "
+         "annotated FASTAs byte-identical on CUDA and CPU")
+
+
+# ------------------------------------------------- genewise and banded CYK
+GENEWISE_SCORE_TOL = 1e-4   # the same float32 terms on both devices
+CYK_SCORE_TOL = 1e-3        # bits: float32 prefix sums differ in their order
+
+
+def _wall_ms_and_launches(fn):
+    """(milliseconds of one call on the host clock, ending in a
+    synchronise, after a warm-up call; eager kernel launches of one call,
+    or None where the profiler reports none)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    import torch.profiler as tp
+
+    with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+    return ms, (launches or None)
+
+
+def _random_dna(rng, n: int) -> str:
+    return "".join("ACGT"[int(i)] for i in rng.integers(0, 4, n))
+
+
+def check_genewise_vs_cpu(dev) -> None:
+    from mitoflex_tpu_torch.io import encoding
+    from mitoflex_tpu_torch.models import codon
+    from mitoflex_tpu_torch.ops import genewise
+
+    rng = np.random.default_rng(17)
+    gc = codon.get_code(5)
+    codons = [c for c, a in sorted(gc.forward.items()) if a != "*"]
+    stop = next(c for c, a in sorted(gc.forward.items()) if a == "*")
+    kinds = ["clean", "plus1", "minus1", "plus2", "stop", "twice"] * 4
+    q_rows, t_rows = [], []
+    for kind in kinds:
+        n = int(rng.integers(80, 110))
+        nt = "".join(codons[int(i)] for i in rng.integers(0, len(codons), n))
+        q_rows.append(codon.aa_encode(gc.translate_str(nt)))
+        mid = 3 * (n // 2)
+        if kind == "plus1":
+            nt = nt[:mid] + "A" + nt[mid:]
+        elif kind == "minus1":
+            nt = nt[:mid] + nt[mid + 1:]
+        elif kind == "plus2":
+            nt = nt[:mid] + "CA" + nt[mid:]
+        elif kind == "stop":
+            nt = nt[:mid] + stop + nt[mid + 3:]
+        elif kind == "twice":     # two equal maxima: the first must win
+            nt = nt + _random_dna(rng, 30) + nt
+        t_rows.append(encoding.encode(_random_dna(rng, 30) + nt + _random_dna(rng, 30)))
+    B = len(kinds)
+    qa = np.full((B, max(map(len, q_rows))), codon.X_CODE, np.int8)
+    ta = np.full((B, max(map(len, t_rows))), 4, np.int8)
+    ql, tl = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    for i, (q, t) in enumerate(zip(q_rows, t_rows)):
+        qa[i, : len(q)], ta[i, : len(t)] = q, t
+        ql[i], tl[i] = len(q), len(t)
+    aa = genewise.translate_windows(ta, 5)
+
+    def run(device):
+        return genewise.genewise_align(
+            *(torch.from_numpy(x).to(device) for x in (qa, ql, aa, tl)), codon.blosum62())
+
+    got, want = run(dev), run("cpu")
+    for f in ("q_from", "q_to", "t_from", "t_to", "n_shift"):
+        if not torch.equal(getattr(got, f).cpu(), getattr(want, f)):
+            raise AssertionError(f"genewise_align: {f} differs between CUDA and CPU")
+    err = float((got.score.cpu() - want.score).abs().max())
+    shifted = [i for i, k in enumerate(kinds) if k in ("plus1", "minus1", "plus2")]
+    if err > GENEWISE_SCORE_TOL or int(want.n_shift[shifted].min()) < 1 \
+            or float(want.score.min()) < 100:
+        raise AssertionError(f"genewise_align: score error {err}, frameshifts "
+                             f"{want.n_shift.tolist()}")
+    ms, launches = _wall_ms_and_launches(lambda: run(dev))
+    _log(f"genewise_align on the card against the CPU: {B} hits x {qa.shape[1]} aa x "
+         f"{int(tl.max())} nt (frameshifts +1, -1, +2, in-frame stops, a gene planted "
+         f"twice): coordinates and frameshift counts equal, scores within "
+         f"{GENEWISE_SCORE_TOL} (max {err:.2e}); {ms:.1f} ms a call, "
+         f"{launches if launches else 'not measured'} eager launches a call "
+         f"({int(tl.max())} steps)")
+
+
+def check_cyk_vs_cpu(dev, tmp: str) -> None:
+    from mitoflex_tpu_torch.io import encoding
+    from mitoflex_tpu_torch.models import cm as cm_models
+    from mitoflex_tpu_torch.ops import cyk, cyk_device
+    from mitoflex_tpu_torch.testing import cm_fixture
+
+    rng = np.random.default_rng(23)
+    for name, fx, slack, pad in (
+            ("tRNA-size", cm_fixture.trna_cm("smoke_trna", rng, "GAA"), 12, 20),
+            ("rRNA-size", cm_fixture.rrna_cm("smoke_rrna", rng, 950), 48, 64)):
+        path = cm_fixture.write_cm(fx, os.path.join(tmp, f"{fx.name}.cm"))
+        model = cm_models.load_cm_file(path)[0]
+        cons = fx.consensus
+        mutated = list(cons)
+        for i in rng.integers(0, len(cons), max(3, len(cons) // 20)):
+            mutated[int(i)] = "ACGT"[int(rng.integers(0, 4))]
+        del mutated[len(cons) // 3]
+        n = len(cons)
+        # (window body, anchor's first window position, slack)
+        windows = {
+            "planted": (cons, pad, slack),
+            "mutated": ("".join(mutated), pad, slack),
+        }
+        if 2 * n <= 3 * 48:
+            # the consensus twice, the anchor half-way between the copies and
+            # bands wide enough for both: two equal-scoring parses in every
+            # block, of which the first cell must win on both devices
+            windows["twice"] = (cons + cons, pad + n // 2, 48)
+        worst, times = 0.0, []
+        for kind, (body, w0, slack_k) in windows.items():
+            seq = _random_dna(rng, pad) + body + _random_dna(rng, pad)
+            window = np.asarray(encoding.encode(seq))
+            span = n - 1 if kind == "mutated" else n
+            anchor = (w0, w0 + span - 1, 0, n - 1)
+            for local in (False, True):
+                def run(device):
+                    return cyk_device.cyk_banded_device(model, window, anchor, slack_k,
+                                                        local=local, device=device)
+                got, want = run(dev), run("cpu")
+                host = cyk.cyk_banded(model, window, anchor, slack_k, local=local)
+                what = f"cyk_banded_device {name} {kind} {'local' if local else 'glocal'}"
+                if got is None or want is None or host is None:
+                    raise AssertionError(f"{what}: no parse")
+                if (got.seq_from, got.seq_to, got.mdl_from, got.mdl_to) != \
+                        (want.seq_from, want.seq_to, want.mdl_from, want.mdl_to):
+                    raise AssertionError(f"{what}: coordinates differ between CUDA "
+                                         f"and CPU: {got} vs {want}")
+                worst = max(worst, abs(got.score - want.score))
+                if host.score > got.score + CYK_SCORE_TOL:
+                    raise AssertionError(f"{what}: host banded {host.score} > device "
+                                         f"{got.score}")
+                if name == "tRNA-size":
+                    exact = cyk.cyk_align(model, window, local=local)
+                    if got.score > exact.score + CYK_SCORE_TOL or (
+                            kind == "planted"
+                            and abs(got.score - exact.score) > CYK_SCORE_TOL):
+                        raise AssertionError(f"{what}: device {got.score} against "
+                                             f"exact {exact.score}")
+                if kind in ("planted", "twice") and \
+                        (got.seq_from, got.seq_to) != (pad, pad + n - 1):
+                    raise AssertionError(f"{what}: planted consensus found at "
+                                         f"{got.seq_from}..{got.seq_to}")
+                if kind == "planted" and local:
+                    times = _wall_ms_and_launches(lambda: run(dev))
+        if worst > CYK_SCORE_TOL:
+            raise AssertionError(f"cyk_banded_device {name}: score error {worst}")
+        _log(f"cyk_banded_device {name} (CLEN {fx.clen}, {model.n_states} states, "
+             f"slack {slack}, deck {model.n_states} x {2 * slack + 2} x {2 * slack + 2} "
+             f"float32) on the card against the CPU: coordinates and argmax cells "
+             f"equal, scores within {CYK_SCORE_TOL} bits (max {worst:.2e}); host "
+             f"cyk_banded <= device"
+             + (" <= exact CYK, equal on the planted consensus" if name == "tRNA-size"
+                else ", planted consensus found at its place")
+             + f"; {times[0]:.1f} ms a call, "
+             f"{times[1] if times[1] else 'not measured'} eager launches a call")
 
 
 def main() -> int:
@@ -700,6 +1043,8 @@ def main() -> int:
         k3_golden = check_graph_pass_k3(passes)
         del passes, merges
         run_small_slice_vs_cpu(args.seed, tmp)
+        check_genewise_vs_cpu(dev)
+        check_cyk_vs_cpu(dev, tmp)
     finally:
         if args.out is None:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -720,8 +1065,11 @@ def main() -> int:
                 "bound_ms": shape["bound_ms"], "bound_by": "bytes",
                 "library_ms": shape.get("library_ms")}
 
+    k1_entry = entry("filter_reads", "filter.cu", "filter.py:92", k1, [k1])
+    k1_entry.update({k: k1[k] for k in ("raw_ms", "golden_ms", "golden_raw_ms",
+                                        "golden_plain_ms", "golden_bound_ms")})
     kernels_line = {"kernels": [
-        entry("filter_reads", "filter.cu", "filter.py:92", k1, [k1]),
+        k1_entry,
         entry("merge_sorted_runs", "merge.cu", "psort.py:557", k2_main,
               k2 + k2_golden),
         entry("merge_sorted_runs_onepass", "merge.cu", "psort.py:467", k3_main,

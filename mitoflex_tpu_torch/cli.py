@@ -3,10 +3,11 @@
 The parser and the config resolution (``build_parser``, ``resolve_config``)
 are the port's own copies of the JAX package's, so flags and config files
 behave identically. One flag is added,
-``--device`` (``cuda``, ``cuda:N`` or ``cpu``; default: CUDA when a card is
-visible). ``filter``, ``assemble`` and ``findmitoscaf`` run; the
-subcommands not ported yet exit with status 3 and name the ROADMAP item
-that ports them.
+``--device`` (``cuda``, ``cuda:N`` or ``cpu``). Without it the command runs
+on the card and fails, naming the missing card, when no CUDA device is
+visible: the CPU is taken only when ``--device cpu`` asks for it. ``filter``,
+``assemble``, ``findmitoscaf`` and ``annotate`` run; the subcommands not
+ported yet exit with status 3 and name the ROADMAP item that ports them.
 
 ``MITOFLEX_TORCH_PROFILE=<dir>`` records a ``torch.profiler`` trace of the
 command (CPU, plus CUDA on a card) to ``<dir>/trace.json``.
@@ -99,6 +100,14 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    "compatibility; parallelism is device-driven")
 
 
+_DEVICE_HELP = (
+    "--device cuda|cuda:N|cpu may stand anywhere on the command line. "
+    "Default: the card, and an error that names the missing card when no "
+    "CUDA device is visible; the CPU is taken only when --device cpu asks "
+    "for it."
+)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="mitoflex-tpu-torch",
@@ -106,6 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
             "Mitogenome analysis on NVIDIA GPUs: filter, assemble, find, annotate "
             f"and visualize mitochondrial genomes from NGS data. v{__version__}"
         ),
+        epilog=_DEVICE_HELP,
     )
     parser.add_argument("--version", action="version", version=__version__)
     sub = parser.add_subparsers(dest="command", required=True)
@@ -208,7 +218,6 @@ def resolve_config(args: argparse.Namespace) -> PipelineConfig:
 
 
 NOT_PORTED = {
-    "annotate": "ROADMAP.md queue 1, item 7 (annotate)",
     "visualize": "ROADMAP.md queue 1, item 8 (visualize)",
     "all": "ROADMAP.md queue 1, item 9 (run_all, run_bim and the CLI)",
     "bim": "ROADMAP.md queue 1, item 9 (run_all, run_bim and the CLI)",
@@ -219,18 +228,19 @@ PORTED_MODULES = [
     "utils.workdir", "native.fastq_native", "native.dedup_native",
     "native.merge_native", "native.graph_native", "ops.filter", "ops.psort",
     "ops.kmer", "ops.dbg", "ops.mapper", "ops.overlap", "ops.phmm", "ops.spill",
-    "ops.sw", "models.blast", "models.cm", "models.codon", "models.hmm",
+    "ops.sw", "ops.cyk", "ops.cyk_device", "ops.genewise", "bio.wuss",
+    "models.blast", "models.cmsearch", "models.cm", "models.codon", "models.hmm",
     "models.nhmmer", "models.profiles", "models.proteindb", "models.taxonomy",
     "stages.filter", "stages.assemble", "stages.graph_clean", "stages.scaffold",
-    "stages.merge", "stages.findmitoscaf", "parallel.distributed",
-    "testing.synth", "testing.profile_fixture", "testing.kernel_cases",
+    "stages.merge", "stages.findmitoscaf", "stages.annotate", "parallel.distributed",
+    "testing.synth", "testing.profile_fixture", "testing.cm_fixture", "testing.kernel_cases",
     "pipeline",
 ]
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     pre = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
-    pre.add_argument("--device", default=None)
+    pre.add_argument("--device", default=None, help=_DEVICE_HELP)
     known, rest = pre.parse_known_args(argv)
     args = build_parser().parse_args(rest)
 
@@ -260,7 +270,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"config written to {args.generate_config}")
         return 0
 
-    from .pipeline import PipelineContext, run_assemble, run_filter, run_findmitoscaf
+    from .pipeline import (PipelineContext, run_annotate, run_assemble,
+                           run_filter, run_findmitoscaf)
 
     t0 = time.time()
     ctx = PipelineContext.create(cfg, known.device)
@@ -288,6 +299,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             res = run_findmitoscaf(ctx, args.fastafile, args.fastq1, args.fastq2,
                                    from_megahit=args.from_megahit)
             print(json.dumps({"picked": res.path}))
+        elif args.command == "annotate":
+            res = run_annotate(ctx, args.fastafile)
+            print(json.dumps({"locs": res.path, "genes": len(res.locs),
+                              "circular": res.circular}))
         logger.info(f"All done! Time elapsed: {time.time() - t0:.1f}s")
         return 0
     except RuntimeError as e:

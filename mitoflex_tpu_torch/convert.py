@@ -16,7 +16,8 @@ State converters (both ways):
   ``n_entries``);
 - ``GraphPass`` fields;
 - staged profiles (``phmm.DeviceProfile``) and alignment hits
-  (``HmmHits``, ``SwHits``).
+  (``HmmHits``, ``SwHits``, ``WiseHits``);
+- covariance models (``models.cm.CovarianceModel`` with its filter HMM).
 """
 
 from __future__ import annotations
@@ -186,3 +187,49 @@ def hits_to_numpy(hits):
     """``HmmHits`` or ``SwHits`` of either package -> the same NamedTuple
     holding numpy arrays."""
     return type(hits)(*(host(x) for x in hits))
+
+
+def wise_hits_from_reference(hits, device="cpu"):
+    """``WiseHits`` of the JAX package (or any object with its six fields)
+    -> the port's ``WiseHits`` of tensors on ``device``."""
+    from .ops.genewise import WiseHits
+
+    return WiseHits(*(torch.from_numpy(np.array(getattr(hits, f))).to(device)
+                      for f in WiseHits._fields))
+
+
+# ------------------------------------------------------- covariance models
+def hmm_from_reference(hmm):
+    """A ``ProfileHMM`` of the JAX package -> the port's (arrays copied)."""
+    from .models.hmm import ProfileHMM
+
+    def arr(x):
+        return None if x is None else np.array(x)
+
+    return ProfileHMM(
+        name=hmm.name, length=int(hmm.length), alphabet=hmm.alphabet,
+        match_emit=arr(hmm.match_emit), insert_emit=arr(hmm.insert_emit),
+        trans=arr(hmm.trans), compo=arr(hmm.compo), max_length=hmm.max_length,
+        stats=dict(hmm.stats), consensus=hmm.consensus, map_pos=arr(hmm.map_pos),
+    )
+
+
+def cm_from_reference(model):
+    """A ``CovarianceModel`` of the JAX package -> the port's, arrays as
+    numpy copies, model-tree nodes and the filter HMM included, so that a
+    test can feed both packages the same model however it was built."""
+    from .models.cm import CmNode, CovarianceModel
+
+    return CovarianceModel(
+        name=model.name, n_states=int(model.n_states), n_nodes=int(model.n_nodes),
+        clen=int(model.clen), window=int(model.window),
+        stype=np.array(model.stype), node_of=np.array(model.node_of),
+        cfirst=np.array(model.cfirst), cnum=np.array(model.cnum),
+        trans=np.array(model.trans), emit_pair=np.array(model.emit_pair),
+        emit_single=np.array(model.emit_single),
+        nodes=[CmNode(n.kind, n.cons_left, n.cons_right, list(n.state_ids))
+               for n in model.nodes],
+        filter_hmm=(None if model.filter_hmm is None
+                    else hmm_from_reference(model.filter_hmm)),
+        stats=dict(model.stats),
+    )

@@ -10,7 +10,7 @@ formulations, whose kernel calls launch the hand-written CUDA kernels.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -18,10 +18,19 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """The named device, or CUDA when a card is visible, else the CPU.
-    Naming a CUDA device on a machine without one raises."""
+    """The run's device. ``None`` means the card: the current CUDA device,
+    or a ``RuntimeError`` when none is visible. The CPU is taken only when
+    the caller names it (``device="cpu"``, ``--device cpu``); naming a CUDA
+    device on a machine without one raises too. Every public function of
+    the port that takes a ``device`` resolves it here, so ``None`` means the
+    same thing everywhere."""
     if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is visible (torch.cuda.is_available() is "
+                "False) and no device was named; pass device=\"cpu\" "
+                "(--device cpu) to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
@@ -30,6 +39,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def uses_host_mirrors(device: Optional[torch.device]) -> bool:
+def uses_host_mirrors(device: DeviceLike = None) -> bool:
     """True only for the CPU: the host (numpy / native) formulations run."""
-    return torch.device(device or "cpu").type == "cpu"
+    return resolve_device(device).type == "cpu"

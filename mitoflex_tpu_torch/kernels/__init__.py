@@ -125,7 +125,7 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
             lib.mfx_filter_reads.argtypes = [
-                vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp, vp, vp, vp,
+                vp, vp, vp, vp, i64, i32, i32, i32, ctypes.c_float, vp, vp, vp,
             ]
             lib.mfx_filter_reads.restype = i32
             lib.mfx_merge_sorted_runs.argtypes = [

@@ -30,6 +30,7 @@ from ..models import codon
 from ..models.proteindb import ProteinRecord, parse_protein_id
 
 from ..convert import host, to_device
+from ..device import resolve_device
 from ..ops import sw as sw_ops
 
 OUTFMT6 = [
@@ -67,7 +68,7 @@ def _batched_sw(q_rows, t_rows, submat, gap_open, gap_extend, fill, batch=64,
                 device=None):
     """Align row i of q_rows vs row i of t_rows on ``device``; returns the
     nine SwHits fields as numpy arrays (None when there are no rows)."""
-    dev = torch.device(device or "cpu")
+    dev = resolve_device(device)
     sub = torch.as_tensor(submat, dtype=torch.float32, device=dev)
     res = []
     for b0 in range(0, len(q_rows), batch):

@@ -22,7 +22,6 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
-import torch
 
 from ..io import encoding
 from ..io.fasta import FastaRecord
@@ -30,6 +29,7 @@ from ..models.hmm import ProfileHMM
 from ..utils.logger import logger
 
 from ..convert import host, to_device
+from ..device import resolve_device
 from ..ops import phmm as phmm_ops
 
 TBLOUT_COLUMNS = [
@@ -89,7 +89,7 @@ def nhmmer_search(
     for envelopes (pass 2), with the reference's mask-and-rescan multihit
     rounds. Overlapping windows reporting one alignment are deduplicated
     as the reference does."""
-    dev = torch.device(device or "cpu")
+    dev = resolve_device(device)
     rows: List[dict] = []
     codes = [c.codes for c in contigs]
     rc_codes = [np.asarray(encoding.revcomp(x)) for x in codes]

@@ -7,14 +7,15 @@ where ``cutoff_len`` is mate 1's length for both mates of a pair; and two
 uint32 polynomial hashes ``sum((code + 1) * B**i)`` for PE deduplication.
 
 ``filter_reads`` launches the hand-written kernel (csrc/filter.cu) on a CUDA
-tensor and takes ``filter_reads_ref`` only for a tensor on the CPU. Both
+tensor, once, and takes ``filter_reads_ref`` only for a tensor on the CPU.
+numpy models of the kernel's regrouped hash sum and of its in-kernel cutoff
+are in ``testing/kernel_cases.py``, for the tests. Both
 return ``(keep bool [B], h1 [B], h2 [B])`` with the hashes as int32 tensors
 holding the uint32 bit patterns (convert.u32_numpy reads them back).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -77,12 +78,41 @@ def filter_reads_ref(
     return keep, i32_bits(h1), i32_bits(h2)
 
 
-@functools.lru_cache(maxsize=8)
-def _device_powers(L: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The hash power tables on a card, built once per row width."""
-    p1, p2 = _hash_powers(L)
-    return (torch.from_numpy(p1.view(np.int32)).to(device),
-            torch.from_numpy(p2.view(np.int32)).to(device))
+def _bad_arguments(seqs, quals, lengths, cl, dev) -> ValueError:
+    """The error for arguments the kernel does not take (built only when
+    the wrapper's one combined test has failed)."""
+    shape = tuple(seqs.shape)
+    for name, t, dtype, want in (
+        ("seqs", seqs, torch.int8, shape), ("quals", quals, torch.int8, shape),
+        ("lengths", lengths, torch.int32, shape[:1]),
+        ("cutoff_lengths", cl, torch.int32, shape[:1]),
+    ):
+        if t.dtype != dtype or tuple(t.shape) != want or len(want) != t.dim() \
+                or t.device != dev or not t.is_contiguous() or seqs.dim() != 2:
+            return ValueError(
+                f"filter_reads: {name} must be a contiguous {dtype} tensor of "
+                f"shape {want if seqs.dim() == 2 else '[B, L]'} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return ValueError("filter_reads: unsupported arguments")
+
+
+def launch_filter(seqs, quals, lengths, cutoff_lengths, ns_valve: int,
+                  quality_valve: int, percentage_valve: float,
+                  keep: torch.Tensor, hashes: torch.Tensor) -> None:
+    """One launch of the kernel on checked CUDA tensors, writing ``keep``
+    [B] bool and ``hashes`` [2, B] int32 (h1, h2). The C launcher takes the
+    16-byte-load path where the row width is a multiple of 16 (up to 512)
+    and the rows are 16-byte aligned, else the byte-load path."""
+    B, L = seqs.shape
+    err = kernels.launch(
+        seqs.device, kernels.library().mfx_filter_reads,
+        seqs.data_ptr(), quals.data_ptr(), lengths.data_ptr(),
+        cutoff_lengths.data_ptr(), B, L, ns_valve, quality_valve,
+        percentage_valve, keep.data_ptr(), hashes.data_ptr(),
+    )
+    if err:
+        kernels.check(err, "filter_reads")
+    filter_reads.launches += 1
 
 
 def filter_reads(
@@ -94,41 +124,32 @@ def filter_reads(
     percentage_valve: float,
     cutoff_lengths: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The filter on a batch: the CUDA kernel for tensors on a card, the
-    plain version for tensors on the CPU."""
+    """The filter on a batch: the CUDA kernel for tensors on a card (one
+    launch; the cutoff ``floor(f32(len) * f32(pct))`` is taken inside it),
+    the plain version for tensors on the CPU."""
     dev = seqs.device
     if dev.type == "cpu":
         return filter_reads_ref(seqs, quals, lengths, ns_valve, quality_valve,
                                 percentage_valve, cutoff_lengths)
     if dev.type != "cuda":
         raise ValueError(f"filter_reads: unsupported device {dev}")
-    B, L = seqs.shape
     cl = lengths if cutoff_lengths is None else cutoff_lengths
-    for name, t, dtype, shape in (
-        ("seqs", seqs, torch.int8, (B, L)), ("quals", quals, torch.int8, (B, L)),
-        ("lengths", lengths, torch.int32, (B,)),
-        ("cutoff_lengths", cl, torch.int32, (B,)),
-    ):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"filter_reads: {name} must be a contiguous {dtype} tensor of "
-                f"shape {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-    cutoffs = quality_cutoffs(cl, percentage_valve)
-    p1, p2 = _device_powers(L, dev)
+    i8, i32 = torch.int8, torch.int32
+    # one combined test on the hot path; the message is built only on failure
+    if not (seqs.dim() == 2 and seqs.dtype is i8 and quals.dtype is i8
+            and quals.shape == seqs.shape and lengths.dtype is i32
+            and cl.dtype is i32 and lengths.dim() == 1 and cl.dim() == 1
+            and lengths.shape[0] == seqs.shape[0] == cl.shape[0]
+            and quals.device == dev and lengths.device == dev and cl.device == dev
+            and seqs.is_contiguous() and quals.is_contiguous()
+            and lengths.is_contiguous() and cl.is_contiguous()):
+        raise _bad_arguments(seqs, quals, lengths, cl, dev)
+    B = seqs.shape[0]
     keep = torch.empty(B, dtype=torch.bool, device=dev)
-    h1 = torch.empty(B, dtype=torch.int32, device=dev)
-    h2 = torch.empty(B, dtype=torch.int32, device=dev)
-    err = kernels.launch(
-        dev, kernels.library().mfx_filter_reads,
-        seqs.data_ptr(), quals.data_ptr(), lengths.data_ptr(),
-        cutoffs.data_ptr(), p1.data_ptr(), p2.data_ptr(), B, L,
-        int(ns_valve), int(quality_valve), keep.data_ptr(), h1.data_ptr(),
-        h2.data_ptr(),
-    )
-    kernels.check(err, "filter_reads")
-    filter_reads.launches += 1
+    hashes = torch.empty((2, B), dtype=i32, device=dev)
+    launch_filter(seqs, quals, lengths, cl, int(ns_valve), int(quality_valve),
+                  float(percentage_valve), keep, hashes)
+    h1, h2 = hashes.unbind(0)
     return keep, h1, h2
 
 

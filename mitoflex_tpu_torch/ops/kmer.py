@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..convert import i32_bits, to_device, u32_numpy
+from ..device import resolve_device
 from . import psort
 
 N_CODE = 4
@@ -225,7 +226,7 @@ def count_chunk_host(
     """Count a numpy chunk on ``device``; returns (keys [U, W] uint32 sorted,
     counts [U] uint64). Unweighted: run-length counting + boolean-mask
     compaction; weighted (contig re-injection): the exact weighted path."""
-    dev = torch.device(device or "cpu")
+    dev = resolve_device(device)
     ds, dl = to_device(seqs, dev), to_device(lengths, dev)
     if weights is not None:
         return _count_weighted(ds, dl, k, to_device(np.asarray(weights, np.int64), dev))

@@ -72,7 +72,7 @@ class ContigIndex:
         ridx, cidx = np.nonzero(v)
         keys = w[ridx, cidx]
         order = np.argsort(keys, kind="stable")
-        dev = torch.device(device or "cpu")
+        dev = device_mod.resolve_device(device)
 
         def t(x):
             return torch.from_numpy(x[order].astype(np.int64)).to(dev)

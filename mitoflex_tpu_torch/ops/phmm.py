@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..models.hmm import ProfileHMM
 
 from .sw import prefix_argmax
@@ -93,7 +94,7 @@ def stage_profile(hmm: ProfileHMM, pad_to: int = 0, device=None) -> DeviceProfil
         pad(tb[1 : L + 1, ProfileHMM.MD], NEG), pad(np.cumsum(tdd), NEG),
         np.float32(math.log2(2.0 / (L * (L + 1)))),
     ]
-    dev = torch.device(device or "cpu")
+    dev = resolve_device(device)
     return DeviceProfile(*(torch.tensor(a, device=dev) for a in arrays), L)
 
 

@@ -1,15 +1,16 @@
 """Pipeline orchestrator for the ported stages (filter, assemble,
-findmitoscaf).
+findmitoscaf, annotate).
 
 Port of mitoflex_tpu/pipeline.py: each stage reads and writes files under
 ``<workname>.temp/<stage>/`` with a manifest, so a stage can be re-run on
 its own. The context carries the run's ``torch.device``, which every stage
-receives explicitly. annotate, visualize, ``run_all`` and ``run_bim`` are
-not ported yet (ROADMAP).
+receives explicitly. visualize, ``run_all`` and ``run_bim`` are not ported
+yet (ROADMAP).
 """
 
 from __future__ import annotations
 
+import os
 import shutil
 from dataclasses import dataclass
 from typing import Optional
@@ -169,4 +170,35 @@ def run_findmitoscaf(
         "found_pcgs": res.found_pcgs, "missing_pcgs": res.missing_pcgs,
     })
     res.path = out
+    return res
+
+
+def run_annotate(ctx: PipelineContext, picked_path: str):
+    """Annotate the picked scaffolds: ``locs.json``,
+    ``{workname}.annotated.cds.fa``, ``{workname}.annotated.rna.fa`` and
+    ``{workname}.wise.csv`` under the ``annotation`` stage directory (the
+    first three copied to the results, as the reference does); returns the
+    stage's ``AnnotateResult`` with ``path`` set to ``locs.json``."""
+    from .stages.annotate import annotate
+
+    wd = ctx.workdir
+    records = fasta.load_fasta(picked_path)
+    basedir = wd.stage_dir("annotation")
+    res = annotate(
+        ctx.cfg.annotate, records, ctx.profiles, ctx.cfg.annotate.clade,
+        gene_code=ctx.gene_code, basedir=basedir, prefix=ctx.cfg.run.workname,
+        device=ctx.device,
+    )
+    for name in ("locs.json", f"{ctx.cfg.run.workname}.annotated.cds.fa",
+                 f"{ctx.cfg.run.workname}.annotated.rna.fa"):
+        src = os.path.join(basedir, name)
+        if os.path.exists(src):
+            shutil.copy(src, wd.result_file(name))
+    wd.write_manifest("annotation", {
+        "inputs": [picked_path],
+        "outputs": [os.path.join(basedir, "locs.json")],
+        "species": res.species,
+        "circular": res.circular,
+    })
+    res.path = os.path.join(basedir, "locs.json")
     return res

@@ -70,7 +70,7 @@ class KmerCounter:
         self.k = k
         self.canonical = canonical
         self.max_device_rows = max_device_rows
-        self.device = torch.device(device or "cpu")
+        self.device = device_mod.resolve_device(device)
         self.prefer_host = device_mod.uses_host_mirrors(self.device)
         self.spill_rows = spill_rows
         self.spill_dir = spill_dir
@@ -355,7 +355,7 @@ def add_mercy_edges(
     flanked occurrences."""
     if len(keys) == 0:
         return keys, counts
-    dev = torch.device(device or "cpu")
+    dev = device_mod.resolve_device(device)
     W = keys.shape[1]
     table = to_device(np.ascontiguousarray(keys.T), dev)
     mercy_runs: List[np.ndarray] = []
@@ -397,7 +397,7 @@ def _run_graph_pass(keys: np.ndarray, counts: np.ndarray, k: int,
     E = len(keys)
     if E == 0:
         raise EmptyGraph(f"no solid edges at k={k}")
-    dev = torch.device(device or "cpu")
+    dev = device_mod.resolve_device(device)
     if keys.shape[1] <= 2 and device_mod.uses_host_mirrors(dev):
         return dbg_ops.graph_unitig_pass_host(keys, counts, k)
     # exact sizes: the reference's power-of-two edge capacity only bounded

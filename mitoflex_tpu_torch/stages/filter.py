@@ -23,6 +23,7 @@ from ..utils.helper import StageTimer, timed
 from ..utils.logger import logger
 
 from ..convert import host, to_device, u32_numpy
+from ..device import resolve_device
 from ..ops import filter as filter_ops
 
 
@@ -118,7 +119,7 @@ def filter_reads(
     timer = StageTimer()
     dedup = _DedupSet() if (cfg.deduplication and fastq2) else None
     reads_in = reads_kept = bases_in = bases_kept = dups = used = 0
-    dev = device or "cpu"
+    dev = resolve_device(device)
 
     def run_kernel(seqs, quals, lengths, cutoff_lengths):
         return filter_ops.filter_reads(

@@ -1,4 +1,4 @@
-"""Seeded inputs at the shapes the merge and sort kernels find hardest.
+"""Seeded inputs at the shapes the kernels find hardest.
 
 Run lengths sit around the kernels' tile sizes (tile - 1, tile, tile + 1,
 an empty run), rows tie in their leading words or in all of them, a whole
@@ -9,7 +9,9 @@ the plain versions.
 
 The cases are numpy: uint32 arrays in the wrappers' word-major layout
 (``[W, n]`` keys, ``[P, n]`` payloads). :func:`check_wrappers` runs them all
-through the wrappers of ``ops/psort.py`` on a device.
+through the wrappers of ``ops/psort.py`` on a device; :func:`filter_cases`
+and :func:`check_filter` do the same for the read filter of ``ops/filter.py``
+(row widths on both of its paths, edge lengths, odd codes and valves).
 """
 
 from __future__ import annotations
@@ -119,5 +121,105 @@ def check_wrappers(device) -> int:
         w = on_device(words)
         if not torch.equal(psort.sort_words2(w), psort.sort_words2_ref(w)):
             raise AssertionError(f"K4 differs from its plain version: {name}")
+        n_cases += 1
+    return n_cases
+
+
+# ------------------------------------------------------------- K1 cases
+# the read filter's two hash bases (ops/filter.py)
+HASH_B1, HASH_B2 = 0x01000193, 0x85EBCA6B
+
+
+def regrouped_hashes(seqs: np.ndarray, lengths: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """The two hashes of ``seqs`` [B, L] (L a multiple of 16) summed in the
+    kernel's order: per group g of 16 columns, ``sum_t (code + 1) * B**t``
+    with the columns past the length contributing 0, times ``B**(16 g)``
+    built from the bits of g; all in wrapping uint32. Returns uint32
+    arrays."""
+    B, L = seqs.shape
+    G = L // 16
+    assert L == 16 * G and G <= 32
+    valid = np.arange(L)[None, :] < np.asarray(lengths)[:, None]
+    v = np.where(valid, seqs.astype(np.int64) + 1, 0).astype(np.uint32)
+    v = v.reshape(B, G, 16)
+    out = []
+    with np.errstate(over="ignore"):
+        for base in (HASH_B1, HASH_B2):
+            small = np.array([pow(base, t, 1 << 32) for t in range(16)], np.uint32)
+            inner = (v * small[None, None, :]).sum(2, dtype=np.uint32)
+            scale = np.ones(G, np.uint32)
+            for bit in range(5):
+                c = np.uint32(pow(base, 16 << bit, 1 << 32))
+                sel = (np.arange(G) >> bit) & 1 == 1
+                scale[sel] = scale[sel] * c
+            out.append((inner * scale[None, :]).sum(1, dtype=np.uint32))
+    return out[0], out[1]
+
+
+def kernel_cutoffs(cutoff_lengths: np.ndarray, percentage_valve: float) -> np.ndarray:
+    """numpy model of the cutoff as the kernel takes it per read: the
+    length converted to float32, one float32 multiply rounded to nearest
+    (no contraction), floor, then int32."""
+    prod = np.asarray(cutoff_lengths).astype(np.float32) * np.float32(percentage_valve)
+    return np.floor(prod).astype(np.int32)
+
+
+FilterCase = Tuple[str, np.ndarray, np.ndarray, np.ndarray, np.ndarray, tuple]
+
+
+def filter_cases(seed: int = 2026) -> Iterator[FilterCase]:
+    """(name, seqs, quals, lengths, mate lengths, (ns_valve, quality_valve,
+    percentage_valve)) for the read filter: row widths that take the vector
+    path with one, ten, sixteen and thirty-two lanes a read, widths that
+    take the scalar path (no multiple of 16, wider than 512), lengths 0 and
+    L, rows of N, negative codes, and valves at and past the int8 range."""
+    rng = np.random.default_rng(seed)
+    for B, L in ((4099, 256), (1537, 160), (700, 16), (513, 512), (301, 100),
+                 (130, 528), (64, 48)):
+        seqs = rng.integers(0, 5, size=(B, L)).astype(np.int8)
+        quals = rng.integers(33, 75, size=(B, L)).astype(np.int8)
+        lengths = rng.integers(0, L + 1, size=B).astype(np.int32)
+        lengths[:4] = (0, L, 1, min(L, 17))
+        seqs[4] = 4
+        seqs[5] = rng.integers(-128, 128, size=L).astype(np.int8)
+        quals[6] = rng.integers(-128, 128, size=L).astype(np.int8)
+        mate = rng.permutation(lengths).astype(np.int32)
+        for args in ((10, 55, 0.2), (0, 40, 1 / 3), (3, 127, 0.999),
+                     (300, 200, 0.5), (2, -128, 0.1), (2, -129, 0.1)):
+            yield f"{B}x{L} valves {args}", seqs, quals, lengths, mate, args
+
+
+def check_filter(device) -> int:
+    """Every case of :func:`filter_cases` through ``ops.filter.filter_reads``
+    on ``device``: with its own and with the mate's lengths as the cutoff
+    lengths, on rows as they are (the vector path where the width allows
+    it) and on the same rows one byte off 16-byte alignment (the scalar
+    path at every width). Bit-equal to
+    ``filter_reads_ref`` or AssertionError; returns the number of cases."""
+    import torch
+
+    from ..ops import filter as F
+
+    n_cases = 0
+    for name, seqs, quals, lengths, mate, args in filter_cases():
+        t = [torch.from_numpy(x).to(device) for x in (seqs, quals, lengths, mate)]
+        B, L = seqs.shape
+        # the same rows one byte into a larger buffer: no 16-byte alignment
+        off = [torch.empty(B * L + 1, dtype=torch.int8, device=device)[1:].view(B, L)
+               for _ in range(2)]
+        off[0].copy_(t[0])
+        off[1].copy_(t[1])
+        for cl in (None, t[3]):
+            want = F.filter_reads_ref(*t[:3], *args, cl)
+            for what, got in (
+                ("aligned rows", F.filter_reads(*t[:3], *args, cl)),
+                ("unaligned rows", F.filter_reads(*off, t[2], *args, cl)),
+            ):
+                for field, g, w in zip(("keep", "h1", "h2"), got, want):
+                    if not torch.equal(g, w):
+                        raise AssertionError(
+                            f"K1 {field} differs from filter_reads_ref ({what}, "
+                            f"{'PE' if cl is not None else 'SE'} cutoffs): {name}")
         n_cases += 1
     return n_cases

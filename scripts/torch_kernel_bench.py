@@ -1,13 +1,18 @@
-"""Check and time the port's merge and sort kernels (K2, K3, K4) on one GPU.
+"""Check and time the port's kernels (K1 read filter, K2 and K3 merges, K4
+sort) on one GPU.
 
     python3 scripts/torch_kernel_bench.py [--repo DIR] [--check] [--time]
+                                          [--kernels K1,K2,K3,K4]
                                           [--shapes FILE] [--label NAME]
                                           [--out FILE]
 
 ``--repo DIR`` imports ``mitoflex_tpu_torch`` from another checkout (for
 example the parent commit unpacked by ``git archive``), so that two versions
 can be timed in turns within one run on one card; only the public wrappers
-of ``ops/psort.py`` are called, which both versions share.
+of ``ops/psort.py`` and ``ops/filter.py`` are called, which both versions
+share (K1's raw launches go through ``launch_filter`` where the checkout
+has it, and through the earlier C entry point with its precomputed cutoffs
+and power tables where it has not).
 
 ``--check`` runs every case of ``mitoflex_tpu_torch.testing.kernel_cases``
 through the kernels and holds the results against the plain versions
@@ -17,7 +22,11 @@ wrapper call between two events, so it includes the wrapper's host time
 before the launch), the time per call of 20 calls enqueued back to back
 (``back_to_back_ms``), its bound (bytes
 moved once at 3.35 TB/s) and, for the sort, ``torch.sort`` on the packed
-key plus the gather. ``--shapes FILE`` adds K2 shapes from a JSON list of
+key plus the gather. K1 is timed at 65536 x 256 and at the golden batch
+(8192 reads x 160 columns), held bit-equal to ``filter_reads_ref`` first,
+and also gets ``raw_ms``: the launcher called 20 times on preallocated
+outputs between one pair of events, the device's own time a launch.
+``--shapes FILE`` adds K2 shapes from a JSON list of
 ``[na, nb, W]`` (the runs a pipeline run really merged). The card's name and
 power limit are printed first.
 """
@@ -82,10 +91,7 @@ def random_run(psort, gen, n: int, W: int, dev):
     return keys[:, psort.lexsort_words(keys)].contiguous()
 
 
-def time_shapes(psort, dev, label: str, extra_k2, out_path=None) -> None:
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
-
+def _emitter(label: str, out_path):
     def emit(**row):
         row["label"] = label
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
@@ -93,9 +99,58 @@ def time_shapes(psort, dev, label: str, extra_k2, out_path=None) -> None:
         if out_path:
             with open(out_path, "a") as f:
                 f.write(json.dumps(row) + "\n")
+    return emit
+
+
+def time_filter(dev, label: str, out_path=None) -> None:
+    """K1 at 65536 x 256 and at the golden batch shape, 8192 x 160."""
+    from mitoflex_tpu_torch import kernels
+    from mitoflex_tpu_torch.ops import filter as F
+
+    emit = _emitter(label, out_path)
+    args = (10, 55, 0.2)
+    for B, L in ((65536, 256), (8192, 160)):
+        rng = np.random.default_rng(B + L)
+        seqs = torch.from_numpy(rng.integers(0, 5, (B, L)).astype(np.int8)).to(dev)
+        quals = torch.from_numpy(rng.integers(35, 74, (B, L)).astype(np.int8)).to(dev)
+        lens = torch.from_numpy(rng.integers(1, L + 1, B).astype(np.int32)).to(dev)
+        got = F.filter_reads(seqs, quals, lens, *args)
+        want = F.filter_reads_ref(seqs, quals, lens, *args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K1 disagrees with filter_reads_ref at {B}x{L}")
+        ms = cuda_ms(lambda: F.filter_reads(seqs, quals, lens, *args))
+        b2b = cuda_ms_back_to_back(lambda: F.filter_reads(seqs, quals, lens, *args))
+        keep = torch.empty(B, dtype=torch.bool, device=dev)
+        hashes = torch.empty((2, B), dtype=torch.int32, device=dev)
+        if hasattr(F, "launch_filter"):
+            def raw():
+                F.launch_filter(seqs, quals, lens, lens, *args, keep, hashes)
+        else:
+            cut = F.quality_cutoffs(lens, args[2])
+            p1, p2 = F._device_powers(L, dev)
+            fn = kernels.library().mfx_filter_reads
+
+            def raw():
+                kernels.launch(seqs.device, fn, seqs.data_ptr(), quals.data_ptr(),
+                               lens.data_ptr(), cut.data_ptr(), p1.data_ptr(),
+                               p2.data_ptr(), B, L, args[0], args[1],
+                               keep.data_ptr(), hashes[0].data_ptr(),
+                               hashes[1].data_ptr())
+        raw_ms = cuda_ms_back_to_back(raw)
+        # bases, qualities, lengths and cutoff lengths in; keep, h1, h2 out
+        emit(kernel="K1", B=B, L=L, ms=ms, back_to_back_ms=b2b, raw_ms=raw_ms,
+             bound_ms=B * (2 * L + 8 + 9) / HBM_BYTES_PER_MS)
+
+
+def time_shapes(psort, dev, label: str, extra_k2, out_path=None,
+                which=("K2", "K3", "K4")) -> None:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    emit = _emitter(label, out_path)
 
     k2 = [(1 << 21, 1 << 21, 2), (1 << 21, 1 << 21, 8), (1 << 25, 1 << 25, 2)]
-    for na, nb, W in k2 + [tuple(s) for s in extra_k2]:
+    for na, nb, W in (k2 + [tuple(s) for s in extra_k2]) if "K2" in which else []:
         a, b = random_run(psort, gen, na, W, dev), random_run(psort, gen, nb, W, dev)
         va = torch.randint(0, 2**20, (na,), generator=gen, device=dev, dtype=torch.int32)
         vb = torch.randint(0, 2**20, (nb,), generator=gen, device=dev, dtype=torch.int32)
@@ -107,7 +162,7 @@ def time_shapes(psort, dev, label: str, extra_k2, out_path=None) -> None:
         torch.cuda.empty_cache()
     k3 = [(1 << 21, 1 << 21, 2, 0), (1 << 21, 1 << 21, 2, 1), (1 << 21, 1 << 21, 2, 2),
           (93_553, 93_551, 4, 1), (30_183, 30_177, 8, 1), (2_000_003, 1_999_997, 8, 1)]
-    for na, nb, W, P in k3:
+    for na, nb, W, P in k3 if "K3" in which else []:
         a, b = random_run(psort, gen, na, W, dev), random_run(psort, gen, nb, W, dev)
         pa = torch.randint(0, 2**20, (P, na), generator=gen, device=dev, dtype=torch.int32)
         pb = torch.randint(0, 2**20, (P, nb), generator=gen, device=dev, dtype=torch.int32)
@@ -118,7 +173,7 @@ def time_shapes(psort, dev, label: str, extra_k2, out_path=None) -> None:
              bound_ms=2 * 4 * (W + P) * (na + nb) / HBM_BYTES_PER_MS)
         del a, b, pa, pb
         torch.cuda.empty_cache()
-    for n in (1 << 20, 8192 * 129, 16384 * 225, 1 << 24):
+    for n in (1 << 20, 8192 * 129, 16384 * 225, 1 << 24) if "K4" in which else ():
         words = torch.randint(-2**31, 2**31, (2, n), generator=gen, device=dev,
                               dtype=torch.int64).to(torch.int32)
         ms = cuda_ms(lambda: psort.sort_words2(words))
@@ -136,6 +191,8 @@ def main() -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--kernels", default="K1,K2,K3,K4",
+                    help="comma-separated subset of K1,K2,K3,K4 to time")
     ap.add_argument("--shapes", default=None)
     ap.add_argument("--label", default="change")
     ap.add_argument("--out", default=None,
@@ -160,6 +217,10 @@ def main() -> int:
 
         print(f"check: {kernel_cases.check_wrappers(dev)} cases equal to the plain "
               f"versions", flush=True)
+        if hasattr(kernel_cases, "check_filter"):
+            print(f"check: K1 bit-equal to filter_reads_ref on "
+                  f"{kernel_cases.check_filter(dev)} cases (vector and scalar "
+                  f"paths; SE and PE cutoffs)", flush=True)
     if args.time:
         extra = []
         if args.shapes:
@@ -167,7 +228,10 @@ def main() -> int:
                 extra = json.load(f)
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        time_shapes(psort, dev, args.label, extra, args.out)
+        which = tuple(args.kernels.split(","))
+        if "K1" in which:
+            time_filter(dev, args.label, args.out)
+        time_shapes(psort, dev, args.label, extra, args.out, which)
     return 0
 
 

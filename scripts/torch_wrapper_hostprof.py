@@ -9,7 +9,8 @@ merge's wrapper at such a shape (W = 4 key words, 93,553 + 93,551 rows, one
 payload word) and the parts it is made of: the two output allocations, the
 tensor checks, the device guard with a stream object's handle, that handle
 alone, the raw-stream query the wrappers use, the library handle, and the
-raw ctypes launch with outputs allocated ahead. Each line gives microseconds per call to enqueue, and per call until
+raw ctypes launch with outputs allocated ahead; then the read filter's wrapper at its
+golden batch shape (8192 x 160) and its parts. Each line gives microseconds per call to enqueue, and per call until
 the device has finished (the second exceeds the first only where the device
 is the slower side). The card's name and power limit are printed first.
 """
@@ -98,6 +99,27 @@ def main() -> int:
             torch.cuda.current_stream(dev).cuda_stream)
     report("raw ctypes launch, outputs allocated ahead",
            lambda: kernels.check(lib.mfx_merge_sorted_runs_onepass(*args), "probe"))
+
+    # the read filter at the golden batch shape, where the kernel is shorter
+    # than its wrapper's host time
+    from mitoflex_tpu_torch.ops import filter as F
+
+    B, L = 8192, 160
+    seqs = torch.randint(0, 5, (B, L), generator=gen, device=dev).to(torch.int8)
+    quals = torch.randint(35, 74, (B, L), generator=gen, device=dev).to(torch.int8)
+    lens = torch.randint(1, L + 1, (B,), generator=gen, device=dev).to(torch.int32)
+    report(f"filter_reads wrapper at {B} x {L}",
+           lambda: F.filter_reads(seqs, quals, lens, 10, 55, 0.2))
+    report("its two torch.empty outputs", lambda: (
+        torch.empty(B, dtype=torch.bool, device=dev),
+        torch.empty((2, B), dtype=torch.int32, device=dev)))
+    keep = torch.empty(B, dtype=torch.bool, device=dev)
+    hashes = torch.empty((2, B), dtype=torch.int32, device=dev)
+    report("the two views of the hash tensor", lambda: hashes.unbind(0))
+    report("launch_filter, outputs allocated ahead",
+           lambda: F.launch_filter(seqs, quals, lens, lens, 10, 55, 0.2, keep, hashes))
+    report("the plain version's quality_cutoffs (the four eager kernels the "
+           "wrapper no longer runs)", lambda: F.quality_cutoffs(lens, 0.2))
     return 0
 
 

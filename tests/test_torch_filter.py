@@ -16,7 +16,11 @@ from mitoflex_tpu.stages import filter as jax_stage
 from mitoflex_tpu_torch.convert import u32_numpy
 from mitoflex_tpu_torch.ops import filter as port_filter
 from mitoflex_tpu_torch.stages import filter as port_stage
+from mitoflex_tpu_torch.testing import kernel_cases
 from tests import synth
+
+# the port's stage takes the card unless the CPU is named
+_CPU = {"jax": {}, "port": {"device": "cpu"}}
 
 # the edge rows of tests/test_filter.py::test_filter_rules
 EDGE_ROWS = [
@@ -102,7 +106,7 @@ def test_filter_stage_matches_jax(tmp_path, mode):
         outs = {}
         for name, stage in (("jax", jax_stage), ("port", port_stage)):
             out = str(tmp_path / f"{name}.fq")
-            outs[name] = stage.filter_reads(cfg, p, out)
+            outs[name] = stage.filter_reads(cfg, p, out, **_CPU[name])
             assert _read_bytes(out) == _read_bytes(tmp_path / "jax.fq")
     else:
         pairs = synth.shotgun_reads(rng, genome, 200, read_len=90, insert=250)
@@ -112,10 +116,45 @@ def test_filter_stage_matches_jax(tmp_path, mode):
         outs = {}
         for name, stage in (("jax", jax_stage), ("port", port_stage)):
             o1, o2 = str(tmp_path / f"{name}.1.fq"), str(tmp_path / f"{name}.2.fq")
-            outs[name] = stage.filter_reads(cfg, p1, o1, p2, o2)
+            outs[name] = stage.filter_reads(cfg, p1, o1, p2, o2, **_CPU[name])
             for o, j in ((o1, "jax.1.fq"), (o2, "jax.2.fq")):
                 assert _read_bytes(o) == _read_bytes(tmp_path / j)
         assert outs["port"].duplicates >= 15
     j, t = outs["jax"], outs["port"]
     assert (t.reads_in, t.reads_kept, t.bases_kept, t.duplicates) == (
         j.reads_in, j.reads_kept, j.bases_kept, j.duplicates)
+
+
+@pytest.mark.parametrize("pct", [0.2, 0.1, 1 / 3, 0.5, 0.999])
+def test_kernel_cutoff_model_matches_float32_product(pct):
+    """Exact: the cutoff as the CUDA kernel computes it per read (float32
+    length times float32 limit, rounded to nearest, floor) against the torch
+    float32 product of the plain version and the JAX package's, for every
+    length 0..512."""
+    lens = np.arange(0, 513, dtype=np.int32)
+    got = kernel_cases.kernel_cutoffs(lens, pct)
+    np.testing.assert_array_equal(
+        got, port_filter.quality_cutoffs(torch.from_numpy(lens), pct).numpy())
+    np.testing.assert_array_equal(got, np.asarray(jax_filter.quality_cutoffs(lens, pct)))
+
+
+@pytest.mark.parametrize("L", [16, 160, 256, 512])
+def test_regrouped_hash_matches_plain_and_jax(L):
+    """Exact: the hash summed in the kernel's vector-path order (16 columns
+    a lane times B**(16 g), wrapping uint32) against the plain version and
+    the JAX reference, with lengths 0..L, N bases and negative codes."""
+    rng = np.random.default_rng(L)
+    n = 300
+    seqs = rng.integers(0, 5, size=(n, L)).astype(np.int8)
+    seqs[-3:] = rng.integers(-128, 128, size=(3, L)).astype(np.int8)
+    quals = rng.integers(35, 74, size=(n, L)).astype(np.int8)
+    lengths = rng.integers(0, L + 1, size=n).astype(np.int32)
+    lengths[:2] = (0, L)
+    h1, h2 = kernel_cases.regrouped_hashes(seqs, lengths)
+    t = [torch.from_numpy(x) for x in (seqs, quals, lengths)]
+    _, p1, p2 = port_filter.filter_reads_ref(*t, 10, 55, 0.2)
+    np.testing.assert_array_equal(h1, u32_numpy(p1))
+    np.testing.assert_array_equal(h2, u32_numpy(p2))
+    _, j1, j2 = jax_filter.filter_reads_ref(seqs[:-3], quals[:-3], lengths[:-3], 10, 55, 0.2)
+    np.testing.assert_array_equal(h1[:-3], np.asarray(j1))
+    np.testing.assert_array_equal(h2[:-3], np.asarray(j2))

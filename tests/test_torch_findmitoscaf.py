@@ -61,7 +61,8 @@ def test_nhmmer_search_matches_jax(fake, rng):
                _contig("rcfrag", profile_fixture._rc(g[300:1300]), 40.0),
                _contig("nuc", synth.random_genome(rng, 900), 30.0)]
     want = jax_nhmmer.nhmmer_search(contigs, hmms, e_threshold=1e-3, score_threshold=5.0)
-    got = port_nhmmer.nhmmer_search(contigs, hmms, e_threshold=1e-3, score_threshold=5.0)
+    got = port_nhmmer.nhmmer_search(contigs, hmms, e_threshold=1e-3, score_threshold=5.0,
+                                    device="cpu")
     assert len(want) >= 5 and set(want.strand) == {"+", "-"}
     _frames_equal(got, want)
 
@@ -73,10 +74,10 @@ def test_blast_searches_match_jax(fake, rng):
             _contig("d", synth.random_genome(rng, 500), 10.0)]
     want = jax_blast.blastn(recs, recs, skip_self=True)
     assert len(want) >= 4
-    _frames_equal(port_blast.blastn(recs, recs, skip_self=True), want)
+    _frames_equal(port_blast.blastn(recs, recs, skip_self=True, device="cpu"), want)
     db = ProfileSet(fake.profile_dir).merged_protein_db()
     want = jax_blast.tblastn(db, recs[:3], 5)
-    got = port_blast.tblastn(db, recs[:3], 5)
+    got = port_blast.tblastn(db, recs[:3], 5, device="cpu")
     assert len(want) >= 4
     _frames_equal(got, want)
     _frames_equal(port_blast.wash_blast_results(port_blast.blast_filter(got)),
@@ -89,11 +90,12 @@ def test_merges_match_jax(fake, rng):
     recs = [_contig("f1", g[: half + 80], 100.0), _contig("f2", g[half - 80:], 110.0),
             _contig("x", synth.random_genome(rng, 400), 20.0)]
     want = jax_merge.merge_sequences(recs, 50, 60, 20000)
-    got = port_merge.merge_sequences(recs, 50, 60, 20000)
+    got = port_merge.merge_sequences(recs, 50, 60, 20000, device="cpu")
     assert want[1] == got[1] == 1
     assert _records(got[0]) == _records(want[0])
     want = jax_merge.merge_partial(recs[1:2], recs[::2], 50, 60, 20000)
-    got = port_merge.merge_partial(recs[1:2], recs[::2], 50, 60, 20000)
+    got = port_merge.merge_partial(recs[1:2], recs[::2], 50, 60, 20000,
+                                   device="cpu")
     assert want[2] == got[2] >= 1
     assert _records(got[0]) == _records(want[0])
     assert _records(got[1]) == _records(want[1])
@@ -112,7 +114,7 @@ def test_findmitoscaf_matches_jax(fake, merge_method):
     want = jax_fms.findmitoscaf(cfg, contigs, profiles, fake.clade, taxonomy=None,
                                 gene_code=5)
     got = port_fms.findmitoscaf(cfg, contigs, profiles, fake.clade, taxonomy=None,
-                                gene_code=5)
+                                gene_code=5, device="cpu")
     assert [p.id for p in want.picked] == ["mito"]
     assert _records(got.picked) == _records(want.picked)
     assert got.found_pcgs == want.found_pcgs == profile_fixture.GENES

@@ -481,7 +481,8 @@ def test_native_graph_engine(k):
     for i, r in enumerate(reads):
         seqs[i] = jax_encoding.encode(r)
     lens = np.full(len(reads), 70, np.int32)
-    keys, counts = port_kmer.count_chunk_host(seqs, lens, k + 1, canonical=False)
+    keys, counts = port_kmer.count_chunk_host(seqs, lens, k + 1, canonical=False,
+                                              device="cpu")
     want = jax_graph_native.graph_pass(keys, counts, k)
     got = port_graph_native.graph_pass(keys, counts, k)
     assert want is not None and got is not None and len(got) == len(want)
@@ -530,3 +531,94 @@ def test_synthetic_fixtures(tmp_path, spacer):
     assert fx.GENES == profile_fixture.GENES
     if spacer == 2440:
         assert len(outs[1][0]) == 13220
+
+
+# ------------------------------------------------ WUSS and the host CYK
+@pytest.fixture(scope="module")
+def fixture_cms(tmp_path_factory):
+    """A tRNA-like and a small rRNA-like fixture CM, each parsed by both
+    packages from one file, with a planted window and its anchor."""
+    from mitoflex_tpu.models import cm as jax_cm
+    from mitoflex_tpu_torch.models import cm as port_cm
+    from mitoflex_tpu_torch.testing import cm_fixture
+
+    tmp = tmp_path_factory.mktemp("host_cms")
+    rng = np.random.default_rng(31)
+    out = {}
+    for name, fx in (("trna", cm_fixture.trna_cm("trna", rng, "CAT")),
+                     ("rrna", cm_fixture.rrna_cm("rrna", rng, 150))):
+        path = cm_fixture.write_cm(fx, str(tmp / f"{name}.cm"))
+        arr = list(fx.consensus)
+        arr[5] = "ACGT"[("ACGT".index(arr[5]) + 1) % 4]
+        flank = lambda n: "".join("ACGT"[int(i)] for i in rng.integers(0, 4, n))
+        seq = flank(14) + "".join(arr) + flank(11)
+        window = np.asarray(port_encoding.encode(seq))
+        anchor = (14, 14 + fx.clen - 1, 0, fx.clen - 1)
+        out[name] = (port_cm.load_cm_file(path)[0], jax_cm.load_cm_file(path)[0],
+                     window, anchor)
+    return out
+
+
+def _aln_fields(a):
+    return None if a is None else (
+        a.score, a.seq_from, a.seq_to, a.aligned_seq, a.aligned_fold, a.mdl_from,
+        a.mdl_to, a.residue_of_pos)
+
+
+@pytest.mark.parametrize("what", ["consensus_layout", "node_subtree_spans",
+                                  "cyk_align", "cyk_align_local", "cyk_align_many",
+                                  "cyk_banded_glocal", "cyk_banded_local"])
+def test_host_cyk_matches_original(fixture_cms, what):
+    """Exact (the copies run the same numpy arithmetic): every field of
+    every alignment, floats included."""
+    from mitoflex_tpu.ops import cyk as jax_cyk
+    from mitoflex_tpu_torch.ops import cyk as port_cyk
+
+    for name, (pm, jm, window, anchor) in fixture_cms.items():
+        if what == "consensus_layout":
+            got, want = port_cyk.consensus_layout(pm), jax_cyk.consensus_layout(jm)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            assert len(got.cons) == pm.clen
+        elif what == "node_subtree_spans":
+            got = port_cyk.node_subtree_spans(pm)
+            assert got == jax_cyk.node_subtree_spans(jm) and got[0] == (0, pm.clen)
+        elif what.startswith("cyk_align") and name == "trna":
+            local = what.endswith("local")
+            if what == "cyk_align_many":
+                wins = [window, window[3:-2], window[:40]]
+                got = port_cyk.cyk_align_many(pm, wins)
+                want = jax_cyk.cyk_align_many(jm, wins)
+                assert [_aln_fields(a) for a in got] == [_aln_fields(a) for a in want]
+            else:
+                got = port_cyk.cyk_align(pm, window, local=local)
+                assert _aln_fields(got) == _aln_fields(jax_cyk.cyk_align(jm, window, local=local))
+                assert got.score > 50
+        elif what.startswith("cyk_banded"):
+            local = what.endswith("local")
+            for slack in (6, 30):
+                got = port_cyk.cyk_banded(pm, window, anchor, slack, local=local)
+                want = jax_cyk.cyk_banded(jm, window, anchor, slack, local=local)
+                assert _aln_fields(got) == _aln_fields(want) and got.score > 50
+
+
+def test_wuss_matches_original():
+    """The WUSS component tree and ``align_fold``: the same partitions, the
+    anticodon loop's bases, and the same repair of an unbalanced fold."""
+    from mitoflex_tpu.bio import wuss as jax_wuss
+    from mitoflex_tpu_torch.bio import wuss as port_wuss
+
+    fold = "(((((((,,<<<<________>>>>,<<<<<_______>>>>>,,,,<<<<<_______>>>>>))))))):"
+    rng = np.random.default_rng(2)
+    seq = "".join("ACGU"[int(i)] for i in rng.integers(0, 4, len(fold)))
+    shapes = []
+    for mod in (jax_wuss, port_wuss):
+        top = mod.GenericLoop(fold, mod.seq2single(seq))
+        main = [c for c in top.components if isinstance(c, mod.MultiLoop)][0]
+        pins = [c for c in main.components if isinstance(c, mod.HairpinLoop)]
+        shapes.append(([type(c).__name__ for c in top.components],
+                       [type(c).__name__ for c in main.components],
+                       [p.hairpin.to_str() for p in pins], repr(main.stem)))
+    assert shapes[0] == shapes[1] and len(shapes[0][2]) == 3
+    assert shapes[0][2][1] == seq[31:38]
+    for bad in ("((<<__>>)", "<<<__>>>>)", "((..<<_>>..))", "))(("):
+        assert port_wuss.align_fold(bad, "A" * len(bad)) == jax_wuss.align_fold(bad, "A" * len(bad))

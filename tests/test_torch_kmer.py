@@ -135,7 +135,8 @@ def test_count_chunk_scattered_then_pull_matches_jax(kp1):
             torch.from_numpy(seqs), torch.from_numpy(lens), kp1, canonical))
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
-        host = port_kmer.count_chunk_host(seqs, lens, kp1, canonical=canonical)
+        host = port_kmer.count_chunk_host(seqs, lens, kp1, canonical=canonical,
+                                          device="cpu")
         np.testing.assert_array_equal(host[0], want[0])
         np.testing.assert_array_equal(host[1], want[1])
         if kp1 <= 32:
@@ -147,7 +148,7 @@ def test_count_chunk_scattered_then_pull_matches_jax(kp1):
         assert all_t.sum() == 1 and want[1][all_t][0] > 0
     wts = np.arange(1, len(lens) + 1, dtype=np.uint32)
     want = jax_kmer.count_chunk_host(seqs, lens, kp1, wts)
-    got = port_kmer.count_chunk_host(seqs, lens, kp1, wts)
+    got = port_kmer.count_chunk_host(seqs, lens, kp1, wts, device="cpu")
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
 
@@ -160,7 +161,7 @@ def test_kmer_counter_device_lsm_matches_jax(monkeypatch, kp1):
     seqs, lens = _reads(kp1 + 100)
     jc = jax_asm.KmerCounter(kp1, canonical=True, prefer_host=True)
     monkeypatch.setattr(port_device, "uses_host_mirrors", lambda d: False)
-    pc = port_asm.KmerCounter(kp1, canonical=True)
+    pc = port_asm.KmerCounter(kp1, canonical=True, device="cpu")
     assert not pc.prefer_host
     for lo, hi in ((0, 20), (20, 23), (23, 50), (50, len(lens))):
         jc.add_chunk(seqs[lo:hi], lens[lo:hi])
@@ -218,7 +219,7 @@ def test_count_edges_and_mercy_match_jax(k):
     want = jax_asm.count_edges(src, k, 3, extra_contigs=contigs)
     got = port_asm.count_edges(
         src, k, 3, extra_contigs=[port_asm.Contig(c.seq, c.depth, c.circular)
-                                  for c in contigs])
+                                  for c in contigs], device="cpu")
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     skeys, scounts = jax_asm.count_edges(src, k, 3)

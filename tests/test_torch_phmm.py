@@ -50,7 +50,7 @@ def _windows(rng, models, B, T):
 def test_stage_profile_and_converters_exact(rng):
     for hmm, pad in zip(_models(rng, (24, 150)), (32, 0)):
         want = convert.profile_to_numpy(jax_phmm.stage_profile(hmm, pad_to=pad))
-        got_t = port_phmm.stage_profile(hmm, pad_to=pad)
+        got_t = port_phmm.stage_profile(hmm, pad_to=pad, device="cpu")
         got = convert.profile_to_numpy(got_t)
         assert got.keys() == want.keys()
         for k in want:
@@ -88,11 +88,11 @@ def test_viterbi_scores_multi_matches_jax(rng, delete_band):
     want = np.asarray(jax_phmm.viterbi_scores_multi(
         jstack, jnp.asarray(mlens, jnp.int32), jnp.asarray(seqs), jnp.asarray(lens),
         delete_band=delete_band))
-    pstack = port_phmm.stack_profiles([port_phmm.stage_profile(m) for m in models])
+    pstack = port_phmm.stack_profiles([port_phmm.stage_profile(m, device="cpu") for m in models])
     got = port_phmm.viterbi_scores_multi(pstack, mlens, torch.from_numpy(seqs),
                                          torch.from_numpy(lens), delete_band).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=SCORE_TOL)
-    single = port_phmm.viterbi_scores(port_phmm.stage_profile(models[1]),
+    single = port_phmm.viterbi_scores(port_phmm.stage_profile(models[1], device="cpu"),
                                       torch.from_numpy(seqs), torch.from_numpy(lens),
                                       models[1].length, delete_band).numpy()
     np.testing.assert_array_equal(single, got[1])

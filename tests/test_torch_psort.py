@@ -163,7 +163,8 @@ def test_count_chunk_runs_sorts_2word_keys_with_k4(monkeypatch, canonical):
     monkeypatch.setattr(port_psort, "sort_words2", counted)
     runs = port_kmer.count_chunk_runs(torch.from_numpy(seqs), torch.from_numpy(lens),
                                       kp1, canonical)
-    got = port_kmer.count_chunk_host(seqs, lens, kp1, canonical=canonical)
+    got = port_kmer.count_chunk_host(seqs, lens, kp1, canonical=canonical,
+                                     device="cpu")
     windows = seqs.shape[0] * (seqs.shape[1] - kp1 + 1) * (1 if canonical else 2)
     assert calls == [windows, windows] and runs[0].shape[1] == windows
 

@@ -29,6 +29,7 @@ from mitoflex_tpu.io import encoding
 from mitoflex_tpu_torch import device as port_device
 from mitoflex_tpu_torch import kernels
 from mitoflex_tpu_torch import pipeline as port_pipeline
+from mitoflex_tpu_torch.testing import profile_fixture as port_fixture
 from tests import profile_fixture, synth
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -138,9 +139,12 @@ def test_assemble_options_off_by_default_match_jax(inputs, monkeypatch, host_mir
 def fms_inputs(tmp_path_factory):
     rng = np.random.default_rng(7)
     tmp = tmp_path_factory.mktemp("slice_fms")
-    fake = profile_fixture.build(tmp, rng, spacer=600)
+    # the port's fixture: its profile directory also holds the CM fixture's
+    # tRNA and rRNA models, planted in the genome, and both packages read it
+    fake = port_fixture.build(tmp, rng, spacer=600, link_rna=True,
+                              rrna_clen=(200, 230))
     decoy = synth.random_genome(rng, 1500)
-    pairs = synth.shotgun_reads(rng, fake.genome, 1200, read_len=100, insert=300,
+    pairs = synth.shotgun_reads(rng, fake.genome, 1500, read_len=100, insert=300,
                                 circular=True, error_rate=0.005)
     pairs += synth.shotgun_reads(rng, decoy, 150, read_len=100, insert=300,
                                  error_rate=0.005)
@@ -163,13 +167,32 @@ def _run_through_findmitoscaf(pipeline_mod, tmp, workname, fake, f1, f2, **ctx_k
     contigs = pipeline_mod.run_assemble(ctx, res.clean1, res.clean2)
     picked = pipeline_mod.run_findmitoscaf(ctx, contigs)
     manifest = ctx.workdir.read_manifest("findmitoscaf")
-    return _read(getattr(picked, "path", picked)), manifest
+    picked = getattr(picked, "path", picked)
+    pipeline_mod.run_annotate(ctx, picked)
+    stage = ctx.workdir.stage_dir("annotation")
+    annotated = {"locs.json": _read(os.path.join(stage, "locs.json"))}
+    for f in ("annotated.cds.fa", "annotated.rna.fa", "wise.csv"):
+        annotated[f] = _read(os.path.join(stage, f"{workname}.{f}"))
+    return _read(picked), manifest, annotated
 
 
 @pytest.fixture(scope="module")
 def jax_picked(fms_inputs):
     tmp, f1, f2, fake = fms_inputs
     return _run_through_findmitoscaf(jax_pipeline, tmp, "jax", fake, f1, f2)
+
+
+_PORT_RUNS = {}
+
+
+def _port_through_annotate(fms_inputs, host_mirrors):
+    """The port's run of the slice through annotate, made once per
+    formulation (the caller has patched ``uses_host_mirrors`` if needed)."""
+    if host_mirrors not in _PORT_RUNS:
+        tmp, f1, f2, fake = fms_inputs
+        _PORT_RUNS[host_mirrors] = _run_through_findmitoscaf(
+            port_pipeline, tmp, f"port_{host_mirrors}", fake, f1, f2, device="cpu")
+    return _PORT_RUNS[host_mirrors]
 
 
 @pytest.mark.parametrize("host_mirrors", [True, False], ids=["host", "tensor"])
@@ -180,18 +203,41 @@ def test_slice_through_findmitoscaf_matches_jax(fms_inputs, jax_picked, monkeypa
     tmp, f1, f2, fake = fms_inputs
     if not host_mirrors:
         monkeypatch.setattr(port_device, "uses_host_mirrors", lambda d: False)
-    got, manifest = _run_through_findmitoscaf(port_pipeline, tmp, f"port_{host_mirrors}",
-                                              fake, f1, f2, device="cpu")
-    want, want_manifest = jax_picked
+    got, manifest, _ = _port_through_annotate(fms_inputs, host_mirrors)
+    want, want_manifest, _ = jax_picked
     assert got == want
     assert _has_planted_circle(got.decode(), fake.genome, k=41)
     assert manifest["found_pcgs"] == want_manifest["found_pcgs"] == profile_fixture.GENES
     assert manifest["missing_pcgs"] == want_manifest["missing_pcgs"] == []
 
 
+@pytest.mark.parametrize("host_mirrors", [True, False], ids=["host", "tensor"])
+def test_slice_through_annotate_matches_jax(fms_inputs, jax_picked, monkeypatch,
+                                            host_mirrors):
+    """Exact: filter -> assemble -> findmitoscaf -> annotate gives the JAX
+    package's ``locs.json``, both annotated FASTAs and ``wise.csv``, byte
+    for byte; ``locs.json`` lists the four PCGs, the four planted tRNAs and
+    both rRNAs."""
+    import json
+
+    if not host_mirrors:
+        monkeypatch.setattr(port_device, "uses_host_mirrors", lambda d: False)
+    _, _, got = _port_through_annotate(fms_inputs, host_mirrors)
+    _, _, want = jax_picked
+    assert sorted(got) == sorted(want) and len(got) == 4
+    for name in want:
+        assert got[name] == want[name], name
+    locs = json.loads(got["locs.json"])
+    fake = fms_inputs[3]
+    assert set(fake.gene_pos) | set(fake.rna_pos) <= set(locs)
+    for gene, (s, e, _) in {**fake.gene_pos, **fake.rna_pos}.items():
+        assert locs[gene][1] - locs[gene][0] == e - s - 1, gene
+
+
 def test_port_runs_without_jax(tmp_path):
     """In a fresh interpreter the port filters a batch, merges two runs,
-    imports every ported module and runs its CLI's filter and findmitoscaf,
+    imports every ported module and runs its CLI's filter, findmitoscaf and
+    annotate (a subcommand not ported yet exits with 3),
     and neither jax nor any module of the JAX package (``mitoflex_tpu`` or
     ``mitoflex_tpu.*``) enters sys.modules."""
     rng = np.random.default_rng(1)
@@ -204,6 +250,10 @@ def test_port_runs_without_jax(tmp_path):
                 "--workname", "f", "--basedir", str(tmp_path), "--device", "cpu",
                 "--disable-taxa", "--profile-dir", fake.profile_dir,
                 "--clade", fake.clade, "--genetic-code", "5", "--merge-method", "2"]
+    ann_args = ["annotate", "--fastafile", str(tmp_path / "f" / "f.result" / "f.picked.fa"),
+                "--workname", "a", "--basedir", str(tmp_path), "--device", "cpu",
+                "--disable-taxa", "--profile-dir", fake.profile_dir,
+                "--clade", fake.clade, "--genetic-code", "5"]
     code = f"""
 import json, sys
 import numpy as np, torch
@@ -217,14 +267,16 @@ run = K.count_chunk_scattered(seqs, lens, 21)
 merged = K.merge_scattered(run, run)
 rc = main(["filter", "--fastq1", {fq!r}, "--workname", "w", "--basedir",
            {str(tmp_path)!r}, "--device", "cpu", "--disable-taxa"])
-rc_np = main(["annotate", "--fastafile", "x.fa"])
+rc_np = main(["visualize", "--fastafile", "x.fa"])
 rc_mods = main(["load_modules"])
 rc_fms = main({fms_args!r})
+rc_ann = main({ann_args!r})
 jax_pkg = sorted(m for m in sys.modules
                  if m == "mitoflex_tpu" or m.startswith("mitoflex_tpu."))
 print(json.dumps({{"jax": "jax" in sys.modules, "jax_pkg": jax_pkg, "rc": rc,
                   "rc_np": rc_np,
-                  "rc_mods": rc_mods, "rc_fms": rc_fms, "rows": merged[0].shape[1],
+                  "rc_mods": rc_mods, "rc_fms": rc_fms, "rc_ann": rc_ann,
+                  "rows": merged[0].shape[1],
                   "keep": int(keep.sum())}}))
 """
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
@@ -235,11 +287,13 @@ print(json.dumps({{"jax": "jax" in sys.modules, "jax_pkg": jax_pkg, "rc": rc,
     assert r.returncode == 0, r.stdout + r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out == {"jax": False, "jax_pkg": [], "rc": 0, "rc_np": 3, "rc_mods": 0,
-                   "rc_fms": 0,
+                   "rc_fms": 0, "rc_ann": 0,
                    "rows": 2 * 64 * 12, "keep": out["keep"]}
     picked = tmp_path / "f" / "f.result" / "f.picked.fa"
     assert "".join(picked.read_text().split("\n")[1:]) == fake.genome
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    locs = json.loads((tmp_path / "a" / "a.result" / "locs.json").read_text())
+    assert set(profile_fixture.GENES) <= set(locs)
 
 
 def test_chip_smoke_imports_only_the_port():
