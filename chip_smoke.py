@@ -36,16 +36,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    (8192 reads x 129 windows = 1,056,768 keys), at the default chunk
    (16384 reads x 225 windows = 3,686,400 keys) and at 2**24 keys: equal;
    both timed.
-6. The slice filter -> assemble -> findmitoscaf -> annotate at the
-   golden-sample volume: the synthetic profile set's genome
+6. The whole pipeline, filter -> assemble -> findmitoscaf -> annotate ->
+   visualize, at the golden-sample volume through ``run_all``: the
+   synthetic profile set's genome
    (mitoflex_tpu_torch/testing/profile_fixture.py, spacer 2440,
    link_rna=True: a ~15.6 kb circle with four PCGs, four tRNAs and two
    rRNAs whose covariance models, CLEN 72, 950 and 1100, the CM fixture
    writes) at 400x plus two 8 kb nuclear decoys at 12x, 150 bp pairs,
    insert 300, 1% errors, from --seed, through the port's
-   PipelineContext(device="cuda"), run_filter, run_assemble,
-   run_findmitoscaf and run_annotate. All four kernels' launch counters are
-   zeroed just before and read just after; each must be > 0. The picked
+   PipelineContext(device="cuda") and ``run_all``. All four kernels' launch
+   counters are zeroed just before and read just after; each must be > 0.
+   The summary must hold ``picked``, ``locs``, ``circular`` (true) and
+   ``plots``; ``depth_mean`` of ``mt1`` in ``tracks.json`` must lie between
+   0.7 and 1.05 times the planted 400x, ``depth.txt`` must have one row per
+   base of the picked scaffold, and every gene of ``locs.json`` its row in
+   ``gene.txt``. Where matplotlib cannot be imported the script says so, runs
+   ``all`` with ``disable_visualization`` and calls the stage's
+   ``build_tracks`` itself (no figure). The picked
    FASTA must hold a circular scaffold equal to the planted genome up to
    rotation and strand once its (k-1)-base terminal duplication is
    dropped, and the manifest must list all four PCGs as found. annotate's
@@ -53,7 +60,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``trn<letter>`` and ``rrnS`` / ``rrnL``, each on its planted strand,
    and each annotated fragment must be the planted sequence within 2
    codons at either end (which places it up to the circle's rotation);
-   the stage's wall and its parts are printed.
+   the walls of all five stages and their parts are printed.
 7. K2 again on the runs that the golden run's k-mer LSM really merged
    (recorded during phase 6): keys exact, per-key payload sums equal; each
    shape timed. K3 again on the edge tables that the golden run's graph
@@ -61,10 +68,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    to its plain version and timed alone; the node step (node table and
    endpoint ids) and the whole graph pass timed with K3 and with the
    sort-and-join formulation that K3 replaced.
-8. A small slice through annotate run twice, on the card and on the CPU
-   (the host formulations, held against the JAX package by
-   tests/test_torch_slice.py): the clean FASTQs, the contigs, the picked
-   FASTA, ``locs.json`` and both annotated FASTAs must be byte-identical.
+8. A small read set through the whole pipeline twice, as the subprocesses
+   ``python3 -m mitoflex_tpu_torch all`` with no ``--device`` (the card)
+   and with ``--device cpu`` (the host formulations, held against the JAX
+   package by tests/test_torch_pipeline.py), started together: exit 0 both
+   times; the planted circle picked and annotated; the clean FASTQs, the
+   contigs, the picked FASTA, ``locs.json``, both annotated FASTAs,
+   ``wise.csv`` and the seven text track files byte-identical,
+   ``circos.conf`` once each run's directory is replaced.
 9. ``genewise_align`` and ``cyk_banded_device`` on the card against the
    CPU on seeded batches (frameshifts, stops, a window that holds its gene
    twice; the planted, a mutated and a twice-planted consensus of the
@@ -72,9 +83,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    counts and argmax cells equal, scores within 1e-4 (genewise) and 1e-3
    bits (CYK). The CYK contract: host ``cyk_banded`` <= device everywhere,
    device <= exact CYK at the tRNA size, equal on the planted consensus.
-   Each is timed (host clock around a call that ends in a synchronise)
-   with its eager launches a call (``cudaLaunchKernel`` under
-   torch.profiler).
+   Each is timed (host clock around a call that ends in a synchronise);
+   the tRNA-size CYK call's eager launches (``cudaLaunchKernel`` under
+   torch.profiler) are counted, which gives the launches a state.
+10. The rest of the command line on phase 8's card run: ``visualize``
+   alone on the picked FASTA with ``--locs`` (the same track files again;
+   without matplotlib it must exit 2 naming it and write nothing),
+   ``python3 -m mitoflex_tpu_torch.check_circular`` on the picked FASTA (the
+   planted circle must be called circular), and ``all --resume`` without
+   ``--keep-temp``: exit 0, ``resume: skipping`` logged for cleandata,
+   assemble and findmitoscaf, the stage directories gone, the results there.
+11. ``run_bim`` on the same reads, two generations (``iteration_ignore``
+   0), on the card in this process and on the CPU through ``bim --device
+   cpu`` (started beside phase 10's resume run): picked FASTA byte-identical; its longest record is the planted
+   genome (a substring of the doubled genome, at most 50 bases short);
+   K1 to K4 launched; the bait mapping's reads/s printed (generation 0's
+   mapping repeated alone, its kept pairs equal to the run's).
 
 Kernel times are medians of CUDA-event-timed repeats after a warm-up; one
 repeat is one call of the kernel's wrapper between two events, so it holds
@@ -640,12 +664,54 @@ def _launch_counters():
             "sort_words2": psort.sort_words2}
 
 
+def _have_matplotlib() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+TEXT_TRACKS = ("gene.txt", "features.txt", "depth.txt", "gc.txt", "karyotype.txt",
+               "plus.txt", "tracks.json")
+GOLDEN_COVERAGE = 400
+DEPTH_MEAN_BAND = (0.7, 1.05)  # the filter and the errors take reads away; nothing adds any
+
+
+def _read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _check_tracks(prefix: str, picked_path: str, locs_path: str, what: str) -> dict:
+    """The track files under ``prefix`` against the picked FASTA and
+    ``locs.json``: one depth row per base, every gene in ``gene.txt``;
+    returns ``tracks.json``."""
+    from mitoflex_tpu_torch.io import fasta
+
+    with open(f"{prefix}.tracks.json") as f:
+        tracks = json.load(f)
+    n_bases = sum(len(r.seq) for r in fasta.load_fasta(picked_path))
+    n_rows = _read_bytes(f"{prefix}.depth.txt").count(b"\n")
+    if n_rows != n_bases:
+        raise AssertionError(f"{what}: depth.txt has {n_rows} rows for {n_bases} bases")
+    with open(locs_path) as f:
+        locs = json.load(f)
+    rows = [ln.split("\t") for ln in _read_bytes(f"{prefix}.gene.txt").decode().splitlines()]
+    names = {t["id"] for t in tracks["karyotype"]}
+    for gene, v in locs.items():
+        if not any(r[0] in names and r[1:] == [str(v[0]), str(v[1]), gene.split("_")[0]]
+                   for r in rows):
+            raise AssertionError(f"{what}: {gene} of locs.json has no row in gene.txt")
+    return tracks
+
+
 def run_golden_slice(seed: int, tmp: str):
     """Returns the launch counts, the graph passes' inputs ((edge_words,
     edge_counts, k) each) and the LSM merges' inputs ((a_keys, a_vals,
     b_keys, b_vals) each), both kept for phase 7."""
     from mitoflex_tpu_torch import pipeline
-    from mitoflex_tpu_torch.ops import dbg, psort
+    from mitoflex_tpu_torch.io import fasta
+    from mitoflex_tpu_torch.ops import dbg, mapper, psort
+    from mitoflex_tpu_torch.stages import visualize as vis
     from mitoflex_tpu_torch.testing import profile_fixture, synth
 
     t0 = time.perf_counter()
@@ -653,7 +719,7 @@ def run_golden_slice(seed: int, tmp: str):
     fake = profile_fixture.build(pathlib.Path(tmp), rng, spacer=2440, link_rna=True)
     genome = fake.genome
     decoys = [synth.random_genome(rng, 8000) for _ in range(2)]
-    f1, f2, bases = _fastq_pair(rng, tmp, genome, decoys, cov=400, decoy_cov=12,
+    f1, f2, bases = _fastq_pair(rng, tmp, genome, decoys, cov=GOLDEN_COVERAGE, decoy_cov=12,
                                 read_len=150, insert=300, error=0.01)
     _log(f"slice data: {len(genome)} bp genome with {len(profile_fixture.GENES)} PCGs, "
          f"{len(fake.rna_pos)} planted RNAs, "
@@ -674,38 +740,77 @@ def run_golden_slice(seed: int, tmp: str):
         merges.append(tuple(x.clone() for x in (a_keys, a_vals, b_keys, b_vals)))
         return merge_runs(a_keys, a_vals, b_keys, b_vals)
 
+    # each stage's wall (ending in a synchronise) and result, taken where
+    # run_all calls the stage
+    stages = ("run_filter", "run_assemble", "run_findmitoscaf", "run_annotate",
+              "run_visualize")
+    real_stages = {name: getattr(pipeline, name) for name in stages}
+    stage_s, stage_out = {}, {}
+
+    def timed_stage(name):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            stage_out[name] = real_stages[name](*a, **k)
+            torch.cuda.synchronize()
+            stage_s[name] = time.perf_counter() - t0
+            return stage_out[name]
+        return run
+
+    remap = {}
+    coverage_of_reads = mapper.coverage_of_reads
+
+    def timed_coverage(*a, **k):
+        t0 = time.perf_counter()
+        out = coverage_of_reads(*a, **k)
+        torch.cuda.synchronize()
+        remap.update(s=time.perf_counter() - t0, mapped=out[2], reads=out[3])
+        return out
+
+    have_mpl = _have_matplotlib()
+    if not have_mpl:
+        _log("matplotlib cannot be imported here: `all` runs with "
+             "disable_visualization and the visualize stage's build_tracks (rename, "
+             "depth remap on the card, GC windows, tracks.json, circos files) is "
+             "called directly; no figure is rendered")
+        cfg.visualize.disable_visualization = True
     # the wrapper counts on the module attribute of its own name, which is
     # the recording function while this run lasts
     counters = {**_launch_counters(), "merge_sorted_runs": kept_merge}
     ctx = pipeline.PipelineContext.create(cfg, device="cuda")
     dbg.graph_unitig_pass = kept_graph_pass
     psort.merge_sorted_runs = kept_merge
+    mapper.coverage_of_reads = timed_coverage
+    for name in stages:
+        setattr(pipeline, name, timed_stage(name))
     try:
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        res = pipeline.run_filter(ctx, f1, f2)
+        summary = pipeline.run_all(ctx, f1, f2)
         torch.cuda.synchronize()
-        filter_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        contigs = pipeline.run_assemble(ctx, res.clean1, res.clean2,
-                                        inputs_sharded=True)
-        torch.cuda.synchronize()
-        assemble_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        found = pipeline.run_findmitoscaf(ctx, contigs)
-        torch.cuda.synchronize()
-        find_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        annotated = pipeline.run_annotate(ctx, found.path)
-        torch.cuda.synchronize()
-        annotate_s = time.perf_counter() - t0
+        all_s = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
+        res, found = stage_out["run_filter"], stage_out["run_findmitoscaf"]
+        annotated = stage_out["run_annotate"]
+        prefix = os.path.join(ctx.workdir.stage_dir("visualize"), cfg.run.workname)
+        if not have_mpl:
+            t0 = time.perf_counter()
+            vis.build_tracks(cfg.visualize, fasta.load_fasta(found.path), annotated.locs,
+                             prefix, res.clean1, res.clean2,
+                             circular=annotated.circular, device="cuda")
+            torch.cuda.synchronize()
+            stage_s["run_visualize"] = time.perf_counter() - t0
     finally:
         dbg.graph_unitig_pass = graph_pass
         psort.merge_sorted_runs = merge_runs
+        mapper.coverage_of_reads = coverage_of_reads
+        for name in stages:
+            setattr(pipeline, name, real_stages[name])
+    filter_s, assemble_s, find_s, annotate_s, visualize_s = (stage_s[n] for n in stages)
     w = found.walls
-    _log(f"slice walls: filter {filter_s:.3f} s ({res.reads_kept}/{res.reads_in} "
+    _log(f"all walls: run_all {all_s:.3f} s"
+         + ("" if have_mpl else " (without visualize)")
+         + f"; filter {filter_s:.3f} s ({res.reads_kept}/{res.reads_in} "
          f"pairs kept), assemble {assemble_s:.3f} s (incl. local extension and "
          f"scaffolding), findmitoscaf {find_s:.3f} s (nhmmer {w['nhmmer']:.3f} s, "
          f"blastn/tblastn with SW {w['blast']:.3f} s, rest "
@@ -713,9 +818,36 @@ def run_golden_slice(seed: int, tmp: str):
          f"(tblastn {annotated.walls['tblastn']:.3f} s, genewise "
          f"{annotated.walls['genewise']:.3f} s, tRNA {annotated.walls['trna']:.3f} s, "
          f"rRNA {annotated.walls['rrna']:.3f} s, rest "
-         f"{annotate_s - sum(annotated.walls.values()):.3f} s); kernel launches "
+         f"{annotate_s - sum(annotated.walls.values()):.3f} s), visualize "
+         f"{visualize_s:.3f} s ({'tracks and figure' if have_mpl else 'tracks only'}; "
+         f"depth remap {remap['s']:.3f} s for {remap['reads']} reads, "
+         f"{remap['mapped']} mapped, {remap['reads'] / remap['s']:.0f} reads/s); "
+         f"kernel launches "
          f"{json.dumps(launches)}; peak device memory "
          f"{torch.cuda.max_memory_allocated() >> 20} MiB")
+    want_keys = ["picked", "locs", "circular"] + (["plots"] if have_mpl else [])
+    if list(summary) != want_keys or summary["circular"] is not True \
+            or summary["picked"] != found.path or summary["locs"] != annotated.path:
+        raise AssertionError(f"run_all summary {summary}, expected keys {want_keys} "
+                             f"and a circular genome")
+    if have_mpl:
+        plots = summary["plots"]
+        if plots != [f"{prefix}.png"] or not all(
+                os.path.getsize(p) > 0 for p in (
+                    plots[0], f"{prefix}.svg",
+                    ctx.workdir.result_file(f"{cfg.run.workname}.png"),
+                    ctx.workdir.result_file(f"{cfg.run.workname}.svg"))):
+            raise AssertionError(f"run_all plots {plots}: PNG or SVG missing")
+    tracks = _check_tracks(prefix, found.path, annotated.path, "golden all")
+    depth_mean = tracks["depth_mean"]["mt1"]
+    lo, hi = (x * GOLDEN_COVERAGE for x in DEPTH_MEAN_BAND)
+    if not lo <= depth_mean <= hi:
+        raise AssertionError(f"golden all: depth_mean of mt1 {depth_mean} outside "
+                             f"[{lo}, {hi}]")
+    _log(f"all summary: keys {list(summary)}, circular {summary['circular']}; "
+         f"tracks.json depth_mean mt1 {depth_mean:.1f} (planted {GOLDEN_COVERAGE}x, "
+         f"band {lo:.0f}-{hi:.0f}); depth.txt one row per base; every gene of "
+         f"locs.json in gene.txt")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     hit = _planted_circle(found.path, genome, cfg.assemble.kmer_list)
@@ -729,15 +861,15 @@ def run_golden_slice(seed: int, tmp: str):
     _log(f"slice output: picked scaffold {hit[0]} is the planted {len(genome)} bp circle "
          f"(rotation/strand, after the terminal duplication); PCGs found "
          f"{manifest['found_pcgs']}")
-    _check_annotation(fake, annotated, os.path.dirname(annotated.path),
-                      cfg.run.workname, "golden slice", hit[1])
+    _check_annotation(fake, os.path.dirname(annotated.path), cfg.run.workname,
+                      "golden slice", hit[1])
     return launches, passes, merges
 
 
 ANNOTATION_TOL_CODONS = 2
 
 
-def _check_annotation(fake, annotated, stage_dir: str, workname: str, what: str,
+def _check_annotation(fake, stage_dir: str, workname: str, what: str,
                       scaffold: str) -> None:
     """``locs.json`` lists every planted gene under its name, on its
     planted strand, and its annotated fragment is the planted sequence
@@ -799,8 +931,9 @@ def _check_annotation(fake, annotated, stage_dir: str, workname: str, what: str,
          f"(largest length difference {worst} nt); other entries: {extra}")
 
 
-def run_small_slice_vs_cpu(seed: int, tmp: str) -> None:
-    from mitoflex_tpu_torch import pipeline
+def make_small_reads(seed: int, tmp: str):
+    """The small read set of phases 8, 10 and 11: the profile fixture's
+    genome with small covariance models at 60x plus a decoy, 100 bp pairs."""
     from mitoflex_tpu_torch.testing import profile_fixture, synth
 
     rng = np.random.default_rng(seed + 1)
@@ -809,31 +942,319 @@ def run_small_slice_vs_cpu(seed: int, tmp: str) -> None:
     decoys = [synth.random_genome(rng, 1500)]
     f1, f2, _ = _fastq_pair(rng, tmp, fake.genome, decoys, cov=60, decoy_cov=20,
                             read_len=100, insert=300, error=0.005)
-    outs, picked = {}, {}
-    for run in ("cuda", "cpu"):
-        ctx = pipeline.PipelineContext.create(
-            _slice_config(tmp, f"small_{run}", False, fake), device=run)
-        res = pipeline.run_filter(ctx, f1, f2)
-        contigs = pipeline.run_assemble(ctx, res.clean1, res.clean2)
-        picked[run] = pipeline.run_findmitoscaf(ctx, contigs).path
-        annotated = pipeline.run_annotate(ctx, picked[run])
-        stage = os.path.dirname(annotated.path)
-        if run == "cuda":
-            circle = _planted_circle(picked[run], fake.genome, [21, 41])
-            if circle is None:
-                raise AssertionError("small slice: planted circle not picked")
-            _check_annotation(fake, annotated, stage, f"small_{run}", "small slice",
-                              circle[1])
-        outs[run] = []
-        for p in (res.clean1, res.clean2, contigs, picked[run], annotated.path,
-                  os.path.join(stage, f"small_{run}.annotated.cds.fa"),
-                  os.path.join(stage, f"small_{run}.annotated.rna.fa")):
-            with open(p, "rb") as f:
-                outs[run].append(f.read())
-    if outs["cuda"] != outs["cpu"]:
-        raise AssertionError("small slice: outputs differ between CUDA and CPU")
-    _log("small slice: clean FASTQs, contigs, picked FASTA, locs.json and both "
-         "annotated FASTAs byte-identical on CUDA and CPU")
+    return fake, f1, f2
+
+
+# ------------------------------------------------- command line and bim
+class _Command:
+    """One ``python3 -m <module> <args>`` subprocess whose output goes to
+    files under ``tmp``; ``finish`` waits for it and returns (exit code,
+    stdout, stderr), ``kill`` ends it if it still runs."""
+
+    def __init__(self, tmp: str, name: str, module: str, args, threads: int = 0):
+        """``threads`` > 0 caps the command's CPU threads, for a command that
+        runs beside other work on the same cores."""
+        self.name = name
+        self._out = open(os.path.join(tmp, f"{name}.stdout"), "w+")
+        self._err = open(os.path.join(tmp, f"{name}.stderr"), "w+")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            x for x in (REPO, env.get("PYTHONPATH")) if x)
+        if threads:
+            env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = str(threads)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=tmp,
+                                     env=env, stdout=self._out, stderr=self._err)
+
+    def finish(self, timeout: float = 600):
+        try:
+            rc = self.proc.wait(timeout)
+        finally:
+            self.kill()
+        self.seconds = time.perf_counter() - self.t0
+        texts = []
+        for f in (self._out, self._err):
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        return rc, texts[0], texts[1]
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _must_exit(cmd: _Command, code: int = 0):
+    rc, out, err = cmd.finish()
+    if rc != code:
+        raise AssertionError(f"{cmd.name}: exit {rc}, expected {code}\n{out[-3000:]}\n"
+                             f"{err[-3000:]}")
+    return out, err
+
+
+def _json_line(out: str, key: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.startswith("{") and f'"{key}"' in ln]
+    if len(lines) != 1:
+        raise AssertionError(f"expected one JSON line with {key!r} in:\n{out[-2000:]}")
+    return json.loads(lines[0])
+
+
+def _small_cli_args(fake, f1: str, f2: str, basedir: str):
+    """The small slice's settings (``_slice_config``) as command-line flags."""
+    return ["--fastq1", f1, "--fastq2", f2, "--workname", "cli", "--basedir", basedir,
+            "--profile-dir", fake.profile_dir, "--clade", fake.clade,
+            "--genetic-code", "5", "--disable-taxa", "--min-abundance", "10",
+            "--kmer-list", "21,41", "--depth-list", "5,5"]
+
+
+CPU_COMMAND_THREADS = 4  # a CPU command runs beside one on the card
+
+
+class _SmallRuns:
+    """Where phase 8's two command-line runs left their files."""
+
+    def __init__(self, tmp: str):
+        self.base = {"card": os.path.join(tmp, "cli_card"),
+                     "cpu": os.path.join(tmp, "cli_cpu")}
+        self.card_args: list = []   # the card run's flags, for the resume run
+        self.summary: dict = {}     # the JSON line the card run printed
+
+    def stage(self, side: str, name: str, f: str) -> str:
+        return os.path.join(self.base[side], "cli", "cli.temp", name, f)
+
+
+def run_small_all_vs_cpu(tmp: str, fake, f1: str, f2: str, have_mpl: bool,
+                         card_device=()) -> _SmallRuns:
+    """Phase 8: ``all`` through the command line on the card and with
+    ``--device cpu``, started together. ``card_device`` is empty on the card
+    (no ``--device``: the default must be the card); a rehearsal without a
+    card passes ``("--device", "cpu")``."""
+    from mitoflex_tpu_torch.config import VisualizeConfig
+    from mitoflex_tpu_torch.io import fasta
+    from mitoflex_tpu_torch.stages import visualize as vis
+
+    novis = [] if have_mpl else ["--disable-visualization"]
+    runs = _SmallRuns(tmp)
+    runs.card_args = [*_small_cli_args(fake, f1, f2, runs.base["card"]), *card_device,
+                      *novis]
+    card = _Command(tmp, "cli_all_card", "mitoflex_tpu_torch",
+                    ["all", *runs.card_args, "--keep-temp"])
+    cpu = _Command(tmp, "cli_all_cpu", "mitoflex_tpu_torch",
+                   ["all", *_small_cli_args(fake, f1, f2, runs.base["cpu"]),
+                    "--keep-temp", "--device", "cpu", *novis],
+                   threads=CPU_COMMAND_THREADS)
+    try:
+        out, _ = _must_exit(card)
+        _must_exit(cpu)
+    finally:
+        cpu.kill()
+    runs.summary = _json_line(out, "picked")
+    if "pipeline: device cuda" not in out and not card_device:
+        raise AssertionError("`all` without --device did not run on the card")
+    want_keys = ["picked", "locs", "circular"] + (["plots"] if have_mpl else [])
+    if list(runs.summary) != want_keys:
+        raise AssertionError(f"`all` printed {runs.summary}")
+    stage = runs.stage
+    picked = stage("card", "findmitoscaf", "cli.picked.fa")
+    circle = _planted_circle(picked, fake.genome, [21, 41])
+    if circle is None:
+        raise AssertionError("small slice: planted circle not picked")
+    _check_annotation(fake, os.path.dirname(stage("card", "annotation", "locs.json")),
+                      "cli", "small slice", circle[1])
+    if not have_mpl:
+        # the tracks part of the stage, called directly on each run's files
+        for side, device in (("card", card_device[1] if card_device else "cuda"),
+                             ("cpu", "cpu")):
+            with open(stage(side, "annotation", "locs.json")) as f:
+                locs = json.load(f)
+            vis.build_tracks(
+                VisualizeConfig(),
+                fasta.load_fasta(stage(side, "findmitoscaf", "cli.picked.fa")), locs,
+                stage(side, "visualize", "cli"), stage(side, "cleandata", "clean.1.fq"),
+                stage(side, "cleandata", "clean.2.fq"), device=device)
+    contigs = {side: os.path.basename(json.loads(_read_bytes(
+        stage(side, "assemble", "manifest.json")))["outputs"][0]) for side in runs.base}
+    if contigs["card"] != contigs["cpu"]:
+        raise AssertionError(f"small slice: assemble wrote {contigs}")
+    compared = [("cleandata", "clean.1.fq"), ("cleandata", "clean.2.fq"),
+                ("assemble", contigs["card"]), ("findmitoscaf", "cli.picked.fa"),
+                ("annotation", "locs.json"), ("annotation", "cli.annotated.cds.fa"),
+                ("annotation", "cli.annotated.rna.fa"), ("annotation", "cli.wise.csv"),
+                *(("visualize", f"cli.{t}") for t in TEXT_TRACKS)]
+    for name, f in compared:
+        if _read_bytes(stage("card", name, f)) != _read_bytes(stage("cpu", name, f)):
+            raise AssertionError(f"small slice: {f} differs between the card and "
+                                 f"--device cpu")
+    conf = [_read_bytes(stage(side, "visualize", "cli.circos.conf")).decode().replace(
+        runs.base[side], "<BASE>") for side in ("card", "cpu")]
+    if conf[0] != conf[1] or "<BASE>" not in conf[0]:
+        raise AssertionError("small slice: circos.conf differs beyond the directory")
+    _check_tracks(stage("card", "visualize", "cli"), picked,
+                  stage("card", "annotation", "locs.json"), "small slice")
+    _log(f"small slice, `all` through the command line: exit 0 on the card "
+         f"({card.seconds:.1f} s, no --device) and with --device cpu ({cpu.seconds:.1f} "
+         f"s, {CPU_COMMAND_THREADS} threads, beside the card's); clean FASTQs, "
+         f"{contigs['card']}, picked FASTA, locs.json, both annotated FASTAs, wise.csv "
+         f"and the {len(TEXT_TRACKS)} text track files byte-identical, circos.conf equal "
+         f"up to the directory"
+         + ("" if have_mpl else " (tracks from build_tracks called directly: no "
+                               "matplotlib)"))
+    return runs
+
+
+def run_command_line_rest(tmp: str, fake, f1: str, f2: str, runs: _SmallRuns,
+                          have_mpl: bool, card_device=()) -> _Command:
+    """Phase 10: ``visualize`` alone, ``check_circular`` and ``all --resume``
+    on phase 8's card run; returns phase 11's ``bim --device cpu``, started
+    beside the resume run."""
+    stage = runs.stage
+    picked = stage("card", "findmitoscaf", "cli.picked.fa")
+    circle = _planted_circle(picked, fake.genome, [21, 41])
+    # visualize alone, with --locs and the clean reads; check_circular beside it
+    vis_cmd = _Command(tmp, "cli_visualize", "mitoflex_tpu_torch", [
+        "visualize", "--fastafile", picked, "--locs",
+        stage("card", "annotation", "locs.json"),
+        "--fastq1", stage("card", "cleandata", "clean.1.fq"),
+        "--fastq2", stage("card", "cleandata", "clean.2.fq"), "--workname", "cli",
+        "--basedir", os.path.join(tmp, "cli_vis"), "--disable-taxa", *card_device])
+    cc = _Command(tmp, "cli_check_circular", "mitoflex_tpu_torch.check_circular",
+                  ["--fasta", picked, "--length", "1000"])
+    alone = os.path.join(tmp, "cli_vis", "cli", "cli.temp", "visualize")
+    try:
+        if have_mpl:
+            out, _ = _must_exit(vis_cmd)
+            outs = _json_line(out, "outputs")["outputs"]
+            if len(outs) != 10 or not all(os.path.getsize(o) > 0 for o in outs):
+                raise AssertionError(f"`visualize` wrote {outs}")
+            for t in TEXT_TRACKS:
+                if _read_bytes(os.path.join(alone, f"cli.{t}")) != _read_bytes(
+                        stage("card", "visualize", f"cli.{t}")):
+                    raise AssertionError(f"`visualize` alone: {t} differs from the all "
+                                         f"run's")
+            _log(f"command line `visualize` alone: exit 0 ({vis_cmd.seconds:.1f} s), PNG, "
+                 f"SVG and the track files of the `all` run, byte for byte")
+        else:
+            out, err = _must_exit(vis_cmd, 2)
+            if "matplotlib" not in out + err or os.listdir(alone):
+                raise AssertionError(f"`visualize` without matplotlib must name it and "
+                                     f"write nothing:\n{err[-2000:]}")
+            _log(f"command line `visualize` alone: matplotlib is missing here, so the "
+                 f"command exits 2, names it and writes nothing ({vis_cmd.seconds:.1f} s)")
+        out, _ = _must_exit(cc)
+    finally:
+        cc.kill()
+    called = json.loads(out)
+    if not called.get(circle[0]) or called[circle[0]][2] < 40:
+        raise AssertionError(f"check_circular on the picked FASTA: {called}")
+    _log(f"command line check_circular (run beside `visualize`): {circle[0]} "
+         f"circular, overlap {called[circle[0]][2]}")
+
+    # resume on the card's work directory, without --keep-temp
+    cpu_bim = _Command(tmp, "cli_bim_cpu", "mitoflex_tpu_torch",
+                       ["bim", *_small_cli_args(fake, f1, f2, os.path.join(tmp, "bim_cpu")),
+                        *BIM_FLAGS, "--device", "cpu"], threads=CPU_COMMAND_THREADS)
+    try:
+        _check_resume(tmp, runs, have_mpl)
+    except BaseException:
+        cpu_bim.kill()
+        raise
+    return cpu_bim
+
+
+def _check_resume(tmp: str, runs: _SmallRuns, have_mpl: bool) -> None:
+    resume = _Command(tmp, "cli_all_resume", "mitoflex_tpu_torch",
+                      ["all", *runs.card_args, "--resume"])
+    out, _ = _must_exit(resume)
+    again = _json_line(out, "picked")
+    for name in ("cleandata", "assemble", "findmitoscaf"):
+        if f"resume: skipping {name}" not in out:
+            raise AssertionError(f"`all --resume` did not skip {name}")
+    if out.count("resume: skipping") != 3 or again != runs.summary:
+        raise AssertionError(f"`all --resume`: summary {again}, "
+                             f"{out.count('resume: skipping')} stages skipped")
+    root = os.path.join(runs.base["card"], "cli")
+    results = sorted(os.listdir(os.path.join(root, "cli.result")))
+    want = sorted(["cli.picked.fa", "locs.json", "cli.annotated.cds.fa",
+                   "cli.annotated.rna.fa"] + (["cli.png", "cli.svg"] if have_mpl else []))
+    if os.path.exists(os.path.join(root, "cli.temp")) or results != want:
+        raise AssertionError(f"`all --resume` without --keep-temp left cli.temp or the "
+                             f"results {results}")
+    _log(f"command line `all --resume` (no --keep-temp): exit 0 ({resume.seconds:.1f} "
+         f"s), cleandata, assemble and findmitoscaf skipped, annotate"
+         + (" and visualize" if have_mpl else "")
+         + f" rerun, same summary; stage directories removed, results {results}")
+
+
+BIM_FLAGS = ["--max-iteration", "2", "--iteration-ignore", "0"]
+
+
+def run_bim_vs_cpu(tmp: str, fake, f1: str, f2: str, cpu_bim: _Command,
+                   device: str = "cuda") -> dict:
+    """Phase 11; returns the card run's launch counts."""
+    from mitoflex_tpu_torch import pipeline
+    from mitoflex_tpu_torch.io import encoding, fasta, fastq
+    from mitoflex_tpu_torch.ops import mapper
+
+    cfg = _slice_config(os.path.join(tmp, "bim_card"), "cli", False, fake)
+    # the command line's defaults where _slice_config narrows them, so that
+    # both sides read the same configuration
+    cfg.filter.batch_reads = type(cfg.filter)().batch_reads
+    cfg.filter.max_read_len = type(cfg.filter)().max_read_len
+    cfg.assemble.read_chunk = type(cfg.assemble)().read_chunk
+    cfg.bim.max_iteration, cfg.bim.iteration_ignore = 2, 0
+    ctx = pipeline.PipelineContext.create(cfg, device=device)
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    picked = pipeline.run_bim(ctx, f1, f2)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    bim_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if device != "cpu" and min(launches.values()) <= 0:
+        raise AssertionError(f"bim: a kernel never launched: {launches}")
+    if cfg.assemble.disable_scaffolding or not picked.endswith("cli.picked.fa"):
+        raise AssertionError(f"bim: returned {picked}, disable_scaffolding "
+                             f"{cfg.assemble.disable_scaffolding}")
+    out, _ = _must_exit(cpu_bim)
+    cpu_picked = _json_line(out, "picked")["picked"]
+    if _read_bytes(picked) != _read_bytes(cpu_picked):
+        raise AssertionError("bim: picked FASTA differs between the card and the CPU")
+    best = max(fasta.load_fasta(picked), key=lambda r: len(r.seq))
+    doubled = fake.genome + fake.genome
+    if not (best.seq in doubled or encoding.revcomp_str(best.seq) in doubled) \
+            or len(best.seq) <= len(fake.genome) - 50:
+        raise AssertionError(f"bim: longest picked record ({len(best.seq)} bp) is not "
+                             f"the planted {len(fake.genome)} bp genome")
+    # generation 0's bait mapping again, alone: the initial assembly as bait,
+    # the clean pairs in batches of 8192, as run_bim maps them
+    wd = ctx.workdir
+    clean = wd.read_manifest("cleandata")["outputs"]
+    bait = fasta.load_fasta(wd.read_manifest("assemble")["outputs"][0])
+    t0 = time.perf_counter()
+    index = mapper.ContigIndex.build(bait, ctx.device)
+    n_reads = n_kept = 0
+    for p1, p2 in fastq.read_pair_batches(clean[0], clean[1], 8192,
+                                          cfg.filter.max_read_len, keep_names=True):
+        m1 = mapper.map_batch(index, p1.seqs[: p1.count], p1.lengths[: p1.count])
+        m2 = mapper.map_batch(index, p2.seqs[: p2.count], p2.lengths[: p2.count])
+        n_kept += int(((m1.contig >= 0) | (m2.contig >= 0)).sum())
+        n_reads += 2 * p1.count
+    map_s = time.perf_counter() - t0
+    baited = _read_bytes(wd.stage_file("assemble", "bim.0.1.fq")).count(b"\n") // 4
+    if n_kept != baited or baited == 0:
+        raise AssertionError(f"bim: {n_kept} pairs kept by the repeated bait mapping, "
+                             f"{baited} written by generation 0")
+    _log(f"bim: 2 generations in {bim_s:.3f} s on {device} ({bim_s / 2:.3f} s a "
+         f"generation, the first filter and assembly included; CPU through the command "
+         f"line {cpu_bim.seconds:.1f} s); picked FASTA byte-identical, longest record "
+         f"{len(best.seq)} bp of the planted {len(fake.genome)} bp genome; kernel "
+         f"launches {json.dumps(launches)}; bait mapping of generation 0 alone: "
+         f"{n_reads} reads against {len(bait)} contigs in {map_s:.3f} s, "
+         f"{n_reads / map_s:.0f} reads/s, {baited} pairs kept")
+    return launches
 
 
 # ------------------------------------------------- genewise and banded CYK
@@ -841,16 +1262,20 @@ GENEWISE_SCORE_TOL = 1e-4   # the same float32 terms on both devices
 CYK_SCORE_TOL = 1e-3        # bits: float32 prefix sums differ in their order
 
 
-def _wall_ms_and_launches(fn):
+def _wall_ms_and_launches(fn, count_launches: bool = True):
     """(milliseconds of one call on the host clock, ending in a
     synchronise, after a warm-up call; eager kernel launches of one call,
-    or None where the profiler reports none)."""
+    or None where they were not counted or the profiler reports none).
+    Counting costs about a millisecond of profiler time per launch, so the
+    calls of tens of thousands of launches leave it out."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
+    if not count_launches:
+        return ms, None
     import torch.profiler as tp
 
     with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
@@ -914,12 +1339,12 @@ def check_genewise_vs_cpu(dev) -> None:
             or float(want.score.min()) < 100:
         raise AssertionError(f"genewise_align: score error {err}, frameshifts "
                              f"{want.n_shift.tolist()}")
-    ms, launches = _wall_ms_and_launches(lambda: run(dev))
+    ms, launches = _wall_ms_and_launches(lambda: run(dev), count_launches=False)
     _log(f"genewise_align on the card against the CPU: {B} hits x {qa.shape[1]} aa x "
          f"{int(tl.max())} nt (frameshifts +1, -1, +2, in-frame stops, a gene planted "
          f"twice): coordinates and frameshift counts equal, scores within "
-         f"{GENEWISE_SCORE_TOL} (max {err:.2e}); {ms:.1f} ms a call, "
-         f"{launches if launches else 'not measured'} eager launches a call "
+         f"{GENEWISE_SCORE_TOL} (max {err:.2e}); {ms:.1f} ms a call, eager launches a "
+         f"call {launches if launches else 'not counted in this run'} "
          f"({int(tl.max())} steps)")
 
 
@@ -986,7 +1411,8 @@ def check_cyk_vs_cpu(dev, tmp: str) -> None:
                     raise AssertionError(f"{what}: planted consensus found at "
                                          f"{got.seq_from}..{got.seq_to}")
                 if kind == "planted" and local:
-                    times = _wall_ms_and_launches(lambda: run(dev))
+                    times = _wall_ms_and_launches(lambda: run(dev),
+                                                  count_launches=name == "tRNA-size")
         if worst > CYK_SCORE_TOL:
             raise AssertionError(f"cyk_banded_device {name}: score error {worst}")
         _log(f"cyk_banded_device {name} (CLEN {fx.clen}, {model.n_states} states, "
@@ -996,8 +1422,8 @@ def check_cyk_vs_cpu(dev, tmp: str) -> None:
              f"cyk_banded <= device"
              + (" <= exact CYK, equal on the planted consensus" if name == "tRNA-size"
                 else ", planted consensus found at its place")
-             + f"; {times[0]:.1f} ms a call, "
-             f"{times[1] if times[1] else 'not measured'} eager launches a call")
+             + f"; {times[0]:.1f} ms a call, eager launches a call "
+             f"{times[1] if times[1] else 'not counted in this run'}")
 
 
 def main() -> int:
@@ -1030,24 +1456,44 @@ def main() -> int:
          f"{time.perf_counter() - t0:.2f} s (g++ "
          f"{fastq_native.last_build_seconds:.2f} s)")
 
-    k1 = check_filter(dev)
-    k2 = check_merge(dev)
-    check_kernel_cases(dev)
-    k3 = check_merge_onepass(dev)
-    k4 = check_sort2(dev)
+    started = time.perf_counter()
+    phase_s = {}
+
+    def phase(name, fn, *a, **k):
+        """Run one phase and keep its wall for the closing line."""
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    k1 = phase("2 K1", check_filter, dev)
+    k2 = phase("3 K2", check_merge, dev)
+    phase("3 K2", check_kernel_cases, dev)
+    k3 = phase("4 K3", check_merge_onepass, dev)
+    k4 = phase("5 K4", check_sort2, dev)
     tmp = args.out or tempfile.mkdtemp(prefix="mitoflex_chip_smoke_")
     os.makedirs(tmp, exist_ok=True)
     try:
-        launches, passes, merges = run_golden_slice(args.seed, tmp)
-        k2_golden = check_merge_golden(merges)
-        k3_golden = check_graph_pass_k3(passes)
+        launches, passes, merges = phase("6 golden all", run_golden_slice, args.seed, tmp)
+        k2_golden = phase("7 golden K2 K3", check_merge_golden, merges)
+        k3_golden = phase("7 golden K2 K3", check_graph_pass_k3, passes)
         del passes, merges
-        run_small_slice_vs_cpu(args.seed, tmp)
-        check_genewise_vs_cpu(dev)
-        check_cyk_vs_cpu(dev, tmp)
+        fake, f1, f2 = make_small_reads(args.seed, tmp)
+        have_mpl = _have_matplotlib()
+        runs = phase("8 small slice", run_small_all_vs_cpu, tmp, fake, f1, f2, have_mpl)
+        phase("9 genewise CYK", check_genewise_vs_cpu, dev)
+        phase("9 genewise CYK", check_cyk_vs_cpu, dev, tmp)
+        cpu_bim = phase("10 command line", run_command_line_rest, tmp, fake, f1, f2,
+                        runs, have_mpl)
+        try:
+            phase("11 bim", run_bim_vs_cpu, tmp, fake, f1, f2, cpu_bim)
+        finally:
+            cpu_bim.kill()
     finally:
         if args.out is None:
             shutil.rmtree(tmp, ignore_errors=True)
+    _log("phase walls, s: " + ", ".join(f"{k}: {v:.1f}" for k, v in phase_s.items())
+         + f"; all phases {time.perf_counter() - started:.1f}")
 
     # each kernel's times and bound at a shape of the golden run: K1 at its
     # full-width batch, K2 at the LSM's largest merge, K3 at the first graph

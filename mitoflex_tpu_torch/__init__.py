@@ -9,8 +9,9 @@ at first use. The port imports ``torch``, never ``jax`` and nothing of
 I/O, config, the native C++ engines, graph cleaning, profile models), and
 builds its own native host library into ``_build/``.
 
-Ported so far: the filter, assemble (with local extension and scaffolding)
-and findmitoscaf stages. ROADMAP.md lists what remains.
+All five stages are ported (filter, assemble with local extension and
+scaffolding, findmitoscaf, annotate, visualize) with ``run_all``, ``run_bim``
+and the whole command line; multi-device runs are what remains (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -5,9 +5,10 @@ are the port's own copies of the JAX package's, so flags and config files
 behave identically. One flag is added,
 ``--device`` (``cuda``, ``cuda:N`` or ``cpu``). Without it the command runs
 on the card and fails, naming the missing card, when no CUDA device is
-visible: the CPU is taken only when ``--device cpu`` asks for it. ``filter``,
-``assemble``, ``findmitoscaf`` and ``annotate`` run; the subcommands not
-ported yet exit with status 3 and name the ROADMAP item that ports them.
+visible: the CPU is taken only when ``--device cpu`` asks for it. Every
+subcommand of the JAX package's CLI runs (``filter``, ``assemble``,
+``findmitoscaf``, ``annotate``, ``visualize``, ``all``, ``bim``,
+``load_modules``) and prints the same one-line JSON.
 
 ``MITOFLEX_TORCH_PROFILE=<dir>`` records a ``torch.profiler`` trace of the
 command (CPU, plus CUDA on a card) to ``<dir>/trace.json``.
@@ -217,25 +218,55 @@ def resolve_config(args: argparse.Namespace) -> PipelineConfig:
     return cfg
 
 
-NOT_PORTED = {
-    "visualize": "ROADMAP.md queue 1, item 8 (visualize)",
-    "all": "ROADMAP.md queue 1, item 9 (run_all, run_bim and the CLI)",
-    "bim": "ROADMAP.md queue 1, item 9 (run_all, run_bim and the CLI)",
-}
 PORTED_MODULES = [
     "device", "convert", "config", "kernels", "io.encoding", "io.fasta",
     "io.fastq", "io.prefetch", "utils.helper", "utils.logger", "utils.seq",
     "utils.workdir", "native.fastq_native", "native.dedup_native",
     "native.merge_native", "native.graph_native", "ops.filter", "ops.psort",
     "ops.kmer", "ops.dbg", "ops.mapper", "ops.overlap", "ops.phmm", "ops.spill",
-    "ops.sw", "ops.cyk", "ops.cyk_device", "ops.genewise", "bio.wuss",
+    "ops.sw", "ops.cyk", "ops.cyk_device", "ops.genewise", "bio.wuss", "bio.circos",
     "models.blast", "models.cmsearch", "models.cm", "models.codon", "models.hmm",
     "models.nhmmer", "models.profiles", "models.proteindb", "models.taxonomy",
     "stages.filter", "stages.assemble", "stages.graph_clean", "stages.scaffold",
-    "stages.merge", "stages.findmitoscaf", "stages.annotate", "parallel.distributed",
+    "stages.merge", "stages.findmitoscaf", "stages.annotate", "stages.visualize",
+    "parallel.distributed",
     "testing.synth", "testing.profile_fixture", "testing.cm_fixture", "testing.kernel_cases",
-    "pipeline",
+    "pipeline", "check_circular", "ncbi",
 ]
+
+
+def _log_process_state() -> None:
+    """Process and system memory, open files and threads, for the log of a
+    bug-class failure; needs ``psutil`` and says so where it is missing."""
+    try:
+        import psutil
+    except ImportError:
+        logger.error("process state: not available (psutil is not installed)")
+        return
+
+    def read(fn):
+        # a reading that fails is named in its place (in a container psutil can
+        # trip over what /proc holds); the failure being handled keeps its
+        # exit status and its replay
+        try:
+            return fn()
+        except Exception as e:
+            return f"unreadable ({type(e).__name__})"
+
+    proc = psutil.Process()
+    logger.error(
+        f"process state: rss={read(lambda: f'{proc.memory_info().rss >> 20}MiB')} "
+        f"vms={read(lambda: f'{proc.memory_info().vms >> 20}MiB')} "
+        f"open_files={read(lambda: len(proc.open_files()))} "
+        f"threads={read(proc.num_threads)}"
+    )
+
+    def system_memory():
+        vm = psutil.virtual_memory()
+        return (f"{vm.percent}% used "
+                f"({(vm.total - vm.available) >> 20}/{vm.total >> 20} MiB)")
+
+    logger.error(f"system memory: {read(system_memory)}")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -258,20 +289,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("All modules loaded." if not failed else f"{len(failed)} module(s) failed.")
         return 1 if failed else 0
 
-    if args.command in NOT_PORTED:
-        print(f"mitoflex_tpu_torch: '{args.command}' is not ported yet; "
-              f"see {NOT_PORTED[args.command]}. The JAX package of this "
-              f"repository runs it.")
-        return 3
-
     cfg = resolve_config(args)
     if getattr(args, "generate_config", None):
         generate_config(cfg, args.generate_config)
         print(f"config written to {args.generate_config}")
         return 0
 
-    from .pipeline import (PipelineContext, run_annotate, run_assemble,
-                           run_filter, run_findmitoscaf)
+    from .pipeline import (PipelineContext, run_all, run_annotate, run_assemble,
+                           run_bim, run_filter, run_findmitoscaf, run_visualize)
 
     t0 = time.time()
     ctx = PipelineContext.create(cfg, known.device)
@@ -303,6 +328,22 @@ def main(argv: Optional[List[str]] = None) -> int:
             res = run_annotate(ctx, args.fastafile)
             print(json.dumps({"locs": res.path, "genes": len(res.locs),
                               "circular": res.circular}))
+        elif args.command == "visualize":
+            locs = {}
+            if args.locs:
+                with open(args.locs) as f:
+                    locs = json.load(f)
+            outs = run_visualize(ctx, args.fastafile, locs, args.fastq1,
+                                 args.fastq2, circular=args.circular)
+            print(json.dumps({"outputs": outs}))
+        elif args.command == "all":
+            summary = run_all(ctx, args.fastq1, args.fastq2, resume=args.resume)
+            print(json.dumps(summary, default=str))
+        elif args.command == "bim":
+            out = run_bim(ctx, args.fastq1, args.fastq2)
+            print(json.dumps({"picked": out}))
+        if not cfg.run.keep_temp and args.command == "all":
+            ctx.workdir.clean_temp()
         logger.info(f"All done! Time elapsed: {time.time() - t0:.1f}s")
         return 0
     except RuntimeError as e:
@@ -310,8 +351,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         logger.error(str(e))
         return 1
     except Exception:
+        # bug-class failure: dump process state like the reference's
+        # excepthook (MitoFlex.py:423-462 — open files, memory)
         logger.error("Unexpected error — this looks like a bug:")
         traceback.print_exc()
+        _log_process_state()
         logger.replay_suppressed()
         return 2
     finally:

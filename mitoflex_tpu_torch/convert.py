@@ -17,12 +17,14 @@ State converters (both ways):
 - ``GraphPass`` fields;
 - staged profiles (``phmm.DeviceProfile``) and alignment hits
   (``HmmHits``, ``SwHits``, ``WiseHits``);
-- covariance models (``models.cm.CovarianceModel`` with its filter HMM).
+- covariance models (``models.cm.CovarianceModel`` with its filter HMM);
+- gene locations (``locs``) and per-contig depth arrays of the visualize
+  stage.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -189,11 +191,14 @@ def hits_to_numpy(hits):
     return type(hits)(*(host(x) for x in hits))
 
 
-def wise_hits_from_reference(hits, device="cpu"):
+def wise_hits_from_reference(hits, device=None):
     """``WiseHits`` of the JAX package (or any object with its six fields)
-    -> the port's ``WiseHits`` of tensors on ``device``."""
+    -> the port's ``WiseHits`` of tensors on ``device`` (``None``: the card,
+    or a ``RuntimeError``)."""
+    from .device import resolve_device
     from .ops.genewise import WiseHits
 
+    device = resolve_device(device)
     return WiseHits(*(torch.from_numpy(np.array(getattr(hits, f))).to(device)
                       for f in WiseHits._fields))
 
@@ -233,3 +238,19 @@ def cm_from_reference(model):
                     else hmm_from_reference(model.filter_hmm)),
         stats=dict(model.stats),
     )
+
+
+# ------------------------------------------------------- visualize inputs
+def locs_from_reference(locs) -> Dict[str, tuple]:
+    """Gene locations as either package's annotate returns them (tuples) or
+    as ``locs.json`` holds them (lists) -> ``{gene: (start, end, kind,
+    contig, strand)}`` with plain ints and strings, the form ``visualize``
+    takes."""
+    return {str(g): (int(v[0]), int(v[1]), int(v[2]), str(v[3]), str(v[4]))
+            for g, v in locs.items()}
+
+
+def depth_to_numpy(depth_per_contig) -> List[np.ndarray]:
+    """The per-contig depth arrays of ``coverage_of_reads`` (either
+    package) as int64 numpy arrays."""
+    return [host(d).astype(np.int64) for d in depth_per_contig]

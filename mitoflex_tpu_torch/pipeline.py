@@ -1,11 +1,9 @@
-"""Pipeline orchestrator for the ported stages (filter, assemble,
-findmitoscaf, annotate).
+"""Pipeline orchestrator: wires the five stages through the work directory.
 
 Port of mitoflex_tpu/pipeline.py: each stage reads and writes files under
 ``<workname>.temp/<stage>/`` with a manifest, so a stage can be re-run on
-its own. The context carries the run's ``torch.device``, which every stage
-receives explicitly. visualize, ``run_all`` and ``run_bim`` are not ported
-yet (ROADMAP).
+its own (the resume contract of ``run_all``). The context carries the run's
+``torch.device``, which every stage receives explicitly.
 """
 
 from __future__ import annotations
@@ -13,14 +11,16 @@ from __future__ import annotations
 import os
 import shutil
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .config import PipelineConfig
 from .io import fasta, fastq
 from .models.profiles import ProfileSet, get_profiles
 from .models.taxonomy import Taxonomy, load_taxonomy
+from .utils.helper import timed
 from .utils.logger import logger
 from .utils.workdir import WorkDir
 
@@ -202,3 +202,161 @@ def run_annotate(ctx: PipelineContext, picked_path: str):
     })
     res.path = os.path.join(basedir, "locs.json")
     return res
+
+
+def run_visualize(
+    ctx: PipelineContext, picked_path: str, locs: Dict,
+    clean1: Optional[str] = None, clean2: Optional[str] = None,
+    circular: bool = False,
+) -> List[str]:
+    """Render the picked scaffolds under the ``visualize`` stage directory
+    (PNG and SVG copied to the results); returns the files written."""
+    from .stages.visualize import visualize
+
+    wd = ctx.workdir
+    records = fasta.load_fasta(picked_path)
+    prefix = os.path.join(wd.stage_dir("visualize"), ctx.cfg.run.workname)
+    outs = visualize(ctx.cfg.visualize, records, locs, prefix,
+                     fastq1=clean1, fastq2=clean2, circular=circular,
+                     max_depth_reads=ctx.cfg.visualize.max_depth_reads or None,
+                     device=ctx.device)
+    for o in outs:
+        if o.endswith((".png", ".svg")):
+            shutil.copy(o, wd.result_file(os.path.basename(o)))
+    wd.write_manifest("visualize", {"inputs": [picked_path], "outputs": outs})
+    return outs
+
+
+@timed()
+def run_all(
+    ctx: PipelineContext, fastq1: str, fastq2: Optional[str] = None,
+    resume: bool = False,
+) -> Dict:
+    """The flagship end-to-end path (reference `all`, MitoFlex.py:266-312).
+
+    ``resume`` skips cleandata, assemble and findmitoscaf where their
+    manifest records existing outputs; annotate and visualize always
+    rerun. Returns the summary: ``picked``, then ``locs`` and ``circular``
+    unless annotation is disabled, then ``plots`` unless visualization is."""
+
+    def cached(stage: str) -> Optional[list]:
+        if not resume or not ctx.workdir.stage_complete(stage):
+            return None
+        outs = ctx.workdir.read_manifest(stage)["outputs"]
+        logger.info(f"resume: skipping {stage} (outputs present: {outs})")
+        return outs
+
+    c = cached("cleandata")
+    if c:
+        clean1, clean2 = c[0], (c[1] if len(c) > 1 else None)
+    else:
+        res = run_filter(ctx, fastq1, fastq2)
+        clean1, clean2 = res.clean1, res.clean2
+    c = cached("assemble")
+    contigs = c[0] if c else run_assemble(ctx, clean1, clean2, inputs_sharded=True)
+    c = cached("findmitoscaf")
+    picked = c[0] if c else run_findmitoscaf(ctx, contigs).path
+    summary: Dict = {"picked": picked}
+    if not ctx.cfg.annotate.disable_annotation:
+        ann = run_annotate(ctx, picked)
+        summary["locs"] = ann.path
+        summary["circular"] = ann.circular
+        if not ctx.cfg.visualize.disable_visualization:
+            # circular genomes render as a closed ring (MitoFlex.py:291-296)
+            outs = run_visualize(ctx, picked, ann.locs, clean1, clean2,
+                                 circular=ann.circular)
+            summary["plots"] = [o for o in outs if o.endswith(".png")]
+    return summary
+
+
+@timed()
+def run_bim(ctx: PipelineContext, fastq1: str, fastq2: Optional[str] = None) -> str:
+    """Iterative bait-map-assemble loop (reference bim, MitoFlex.py:322-375
+    + bim/bim.py:43-78), starting from an initial assembly as bait; returns
+    the path of the last picked (or, before any pick, assembled) FASTA."""
+    from .ops import mapper
+    from .stages.assemble import assemble
+
+    cfg = ctx.cfg
+    wd = ctx.workdir
+    res = run_filter(ctx, fastq1, fastq2)
+    bait = run_assemble(ctx, res.clean1, res.clean2, inputs_sharded=True)
+    picked = bait
+    for i in range(cfg.bim.max_iteration):
+        logger.info(f"bim: generation {i}")
+        records = fasta.load_fasta(bait)
+        if not records:
+            logger.warn("bim: empty bait; stopping")
+            break
+        index = mapper.ContigIndex.build(records, ctx.device)
+        b1 = wd.stage_file("assemble", f"bim.{i}.1.fq")
+        b2 = wd.stage_file("assemble", f"bim.{i}.2.fq") if res.clean2 else None
+        n_out = 0
+        inserts = []
+        with fastq.FastqWriter(b1) as w1, (
+            fastq.FastqWriter(b2) if b2 else _NullWriter()
+        ) as w2:
+            if res.clean2:
+                pair_iter = fastq.read_pair_batches(
+                    res.clean1, res.clean2, 8192, cfg.filter.max_read_len, keep_names=True
+                )
+                for p1, p2 in pair_iter:
+                    m1 = mapper.map_batch(index, p1.seqs[: p1.count],
+                                          p1.lengths[: p1.count])
+                    m2 = mapper.map_batch(index, p2.seqs[: p2.count],
+                                          p2.lengths[: p2.count])
+                    keep = np.zeros(p1.capacity, bool)
+                    keep[: p1.count] = (m1.contig >= 0) | (m2.contig >= 0)
+                    n_out += w1.write_batch(p1, keep)
+                    w2.write_batch(p2, keep)
+                    if not cfg.bim.insert_size_auto:
+                        continue
+                    both = (m1.contig >= 0) & (m2.contig >= 0) & (m1.contig == m2.contig)
+                    if both.any():
+                        ins = np.abs(m2.pos[both] - m1.pos[both]) + p1.lengths[: p1.count][both]
+                        inserts.append(ins)
+            else:
+                for b in fastq.read_batches(res.clean1, 8192, cfg.filter.max_read_len,
+                                            keep_names=True):
+                    m = mapper.map_batch(index, b.seqs[: b.count],
+                                         b.lengths[: b.count])
+                    keep = np.zeros(b.capacity, bool)
+                    keep[: b.count] = m.contig >= 0
+                    n_out += w1.write_batch(b, keep)
+        logger.info(f"bim: {n_out} baited read(-pair)s")
+        if n_out == 0:
+            break
+        if inserts and cfg.bim.insert_size_auto:
+            # reference gates the estimate behind --insert-size-auto
+            # (MitoFlex.py:354-355)
+            est = int(np.median(np.concatenate(inserts)))
+            logger.info(f"bim: estimated insert size {est}")
+            cfg.assemble.insert_size = est
+        out = wd.stage_file("assemble", f"bim.{i}.contigs.fa")
+        old_noscaf = cfg.assemble.disable_scaffolding
+        cfg.assemble.disable_scaffolding = (
+            old_noscaf or (i % max(cfg.bim.scaffolding_spare, 1) != 0)
+        )
+        try:
+            assemble(cfg.assemble, b1, b2, out,
+                     max_read_len=cfg.filter.max_read_len,
+                     spill_dir=wd.stage_dir("assemble"), device=ctx.device)
+        finally:
+            cfg.assemble.disable_scaffolding = old_noscaf
+        if i > cfg.bim.iteration_ignore:
+            picked = run_findmitoscaf(ctx, out).path
+            bait = picked
+        else:
+            bait = out
+    return picked
+
+
+class _NullWriter:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+    def write_batch(self, *a, **k):
+        return 0

@@ -83,3 +83,52 @@ def test_no_silent_cpu_default_left_in_the_package():
                         if pat.search(line):
                             hits.append(f"{f}:{n}")
     assert hits == []
+
+
+def test_converter_without_a_device_raises():
+    """``convert.wise_hits_from_reference`` follows the rule too: no CPU
+    default."""
+    _no_card()
+    from mitoflex_tpu_torch import convert
+    from mitoflex_tpu_torch.ops.genewise import WiseHits
+
+    hits = WiseHits(*(np.zeros(2, np.int32) for _ in WiseHits._fields))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.wise_hits_from_reference(hits)
+    back = convert.wise_hits_from_reference(hits, device="cpu")
+    assert all(getattr(back, f).device.type == "cpu" for f in WiseHits._fields)
+
+
+@pytest.mark.parametrize("entry", ["visualize", "build_tracks", "run_visualize", "run_all",
+                                   "run_bim", "create"])
+def test_visualize_and_pipeline_entry_points_without_a_device_raise(tmp_path, entry):
+    """``visualize`` / ``build_tracks`` with ``device=None``, and ``run_visualize``,
+    ``run_all`` and ``run_bim`` on a context that names no device, raise the
+    RuntimeError that names the missing card; so does making the context."""
+    _no_card()
+    from mitoflex_tpu_torch import pipeline
+    from mitoflex_tpu_torch.config import PipelineConfig, VisualizeConfig
+    from mitoflex_tpu_torch.io.fasta import FastaRecord, write_fasta
+    from mitoflex_tpu_torch.stages import visualize as vis
+    from mitoflex_tpu_torch.utils.workdir import WorkDir
+
+    rng = np.random.default_rng(4)
+    rec = FastaRecord("s", synth.random_genome(rng, 400))
+    fa = write_fasta([rec], str(tmp_path / "s.fa"))
+    fq = synth.write_fastq(tmp_path / "in.fq", [(rec.seq[:80], "I" * 80)])
+    cfg = PipelineConfig()
+    cfg.run.basedir, cfg.run.workname = str(tmp_path), "w"
+    cfg.search.disable_taxa = True
+    ctx = pipeline.PipelineContext(cfg, WorkDir(str(tmp_path), "w").create(), None)
+    calls = {
+        "visualize": lambda: vis.visualize(VisualizeConfig(), [rec], {}, str(tmp_path / "p")),
+        "build_tracks": lambda: vis.build_tracks(VisualizeConfig(), [rec], {},
+                                                 str(tmp_path / "p")),
+        "run_visualize": lambda: pipeline.run_visualize(ctx, fa, {}),
+        "run_all": lambda: pipeline.run_all(ctx, fq),
+        "run_bim": lambda: pipeline.run_bim(ctx, fq),
+        "create": lambda: pipeline.PipelineContext.create(cfg),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    assert not (tmp_path / "p.tracks.json").exists()

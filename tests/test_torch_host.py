@@ -622,3 +622,104 @@ def test_wuss_matches_original():
     assert shapes[0][2][1] == seq[31:38]
     for bad in ("((<<__>>)", "<<<__>>>>)", "((..<<_>>..))", "))(("):
         assert port_wuss.align_fold(bad, "A" * len(bad)) == jax_wuss.align_fold(bad, "A" * len(bad))
+
+
+# ------------------------------------- circos DSL, check_circular, ncbi tools
+def test_circos_dsl_copy():
+    """The attribute tree, its collapse and its text, through both copies."""
+    from mitoflex_tpu.bio import circos as jax_circos
+    from mitoflex_tpu_torch.bio import circos as port_circos
+
+    out = []
+    for mod in (jax_circos, port_circos):
+        c = mod.Circos()
+        assert not c
+        c.ideogram.spacing.default = "0.01r"
+        c.image.radius = "1500p"
+        c.plot_.type = "histogram"
+        c.plot__.type = "line"
+        _ = c.some.deep.node
+        sub = mod.Circos()
+        sub.k = 3
+        c.attached = sub
+        assert c and c.image.radius == "1500p"
+        with pytest.raises(AttributeError):
+            c._private
+        out.append((c.collapse(), mod.circos_text(c), mod.strip_key("plot__")))
+    assert out[0] == out[1]
+    assert out[1][0]["attached"] == {"k": 3} and "some" not in out[1][0]
+    assert out[1][1].count("<plot>") == 2 and out[1][2] == "plot"
+
+
+@pytest.mark.parametrize("to_file", [False, True], ids=["stdout", "output-file"])
+def test_check_circular_main(tmp_path, capsys, to_file):
+    """The same JSON from both command-line tools on the same FASTA: a
+    sequence whose head repeats at its tail, one that does not, and one
+    below the length gate; default windows (with an overlap bar that chance
+    does not reach) and narrower ones with the length gate lowered."""
+    import json
+
+    from mitoflex_tpu import check_circular as jax_cc
+    from mitoflex_tpu_torch import check_circular as port_cc
+
+    rng = np.random.default_rng(21)
+    core = _seq(rng, 13000, "ACGT")
+    recs = [port_fasta.FastaRecord("ring", core + core[:120]),
+            port_fasta.FastaRecord("line", _seq(rng, 12500, "ACGT")),
+            port_fasta.FastaRecord("short", core[:900] + core[:60])]
+    fa = port_fasta.write_fasta(recs, str(tmp_path / "in.fa"))
+    got = {}
+    for name, mod in (("jax", jax_cc), ("port", port_cc)):
+        for extra in (["--overlay", "40"],
+                      ["--length", "500", "--overlay", "30", "--start", "200",
+                       "--end", "200"]):
+            argv = ["--fasta", fa] + extra
+            if to_file:
+                out = tmp_path / f"{name}{len(extra)}.json"
+                assert mod.main(argv + ["--output", str(out)]) == 0
+                text = out.read_text()
+                assert capsys.readouterr().out == ""
+            else:
+                assert mod.main(argv) == 0
+                text = capsys.readouterr().out
+            got[name, len(extra)] = text
+    for n in (2, 8):
+        assert got["port", n] == got["jax", n]
+    default, wide = json.loads(got["port", 2]), json.loads(got["port", 8])
+    assert default["ring"][2] >= 120 and default["line"] is None and default["short"] is None
+    assert wide["short"] is not None and wide["line"] is None
+
+
+def test_ncbi_tools(tmp_path, capsys):
+    """extract / compact / load_compact / main on the fake taxdump of
+    tests/test_ncbi.py: the same files and the same taxonomy from both
+    copies."""
+    from mitoflex_tpu import ncbi as jax_ncbi
+    from mitoflex_tpu_torch import ncbi as port_ncbi
+    from tests.test_ncbi import _fake_taxdump
+
+    archive = _fake_taxdump(tmp_path)
+    tsv = {}
+    for name, mod in (("jax", jax_ncbi), ("port", port_ncbi)):
+        out = str(tmp_path / name)
+        assert mod.main(["--archive", archive, "--out", out, "--compact"]) == 0
+        said = capsys.readouterr().out.replace(out, "<OUT>")
+        assert sorted(os.listdir(out)) == ["names.dmp", "nodes.dmp", "taxonomy.tsv"]
+        with open(os.path.join(out, "taxonomy.tsv")) as f:
+            tsv[name] = (f.read(), said)
+        tax = mod.load_compact(os.path.join(out, "taxonomy.tsv"))
+        assert tax.get_taxid("Metazoa") == 33208
+        assert tax.lineage(6656) == [1, 33208, 6656]
+        rd = tax.get_rank_dict("Arthropoda")
+        assert rd["phylum"] == "Arthropoda" and rd["kingdom"] == "Metazoa"
+        assert "Animalia" not in tax.taxid_of
+    assert tsv["port"] == tsv["jax"] and tsv["port"][0].count("\n") == 3
+    assert type(port_ncbi.load_compact(str(tmp_path / "port" / "taxonomy.tsv"))) \
+        is port_taxonomy.Taxonomy
+    empty = tmp_path / "empty.tar.gz"
+    import tarfile
+    with tarfile.open(empty, "w:gz"):
+        pass
+    for mod in (jax_ncbi, port_ncbi):
+        with pytest.raises(RuntimeError, match="nodes.dmp"):
+            mod.extract_taxdump(str(empty), str(tmp_path / "none"))

@@ -10,9 +10,10 @@ byte-identical. The port runs twice: on its CPU host formulations, and with
 device runs (device LSM through the plain merge, the tensor graph pass, the
 tensor mapper) run on the CPU.
 
-The second slice carries on through findmitoscaf on a genome of the
-synthetic profile set (tests/profile_fixture.py, four PCGs): the picked
-FASTA must be byte-identical and the manifest must list every PCG found.
+The second slice carries on through findmitoscaf, annotate and visualize on
+a genome of the synthetic profile set (tests/profile_fixture.py, four PCGs):
+the picked FASTA, the annotation files and the visualize track files must be
+byte-identical and the manifest must list every PCG found.
 """
 
 import json
@@ -168,11 +169,27 @@ def _run_through_findmitoscaf(pipeline_mod, tmp, workname, fake, f1, f2, **ctx_k
     picked = pipeline_mod.run_findmitoscaf(ctx, contigs)
     manifest = ctx.workdir.read_manifest("findmitoscaf")
     picked = getattr(picked, "path", picked)
-    pipeline_mod.run_annotate(ctx, picked)
+    ann = pipeline_mod.run_annotate(ctx, picked)
     stage = ctx.workdir.stage_dir("annotation")
     annotated = {"locs.json": _read(os.path.join(stage, "locs.json"))}
     for f in ("annotated.cds.fa", "annotated.rna.fa", "wise.csv"):
         annotated[f] = _read(os.path.join(stage, f"{workname}.{f}"))
+    # the JAX package returns (locs, path, circular), the port a result object
+    locs, circular = (ann[0], ann[2]) if isinstance(ann, tuple) else (ann.locs, ann.circular)
+    outs = pipeline_mod.run_visualize(ctx, picked, locs, res.clean1, res.clean2,
+                                      circular=circular)
+    vdir = ctx.workdir.stage_dir("visualize")
+    tracks = {}
+    for path in outs:
+        name = os.path.basename(path).replace(f"{workname}.", "", 1)
+        if path.endswith((".png", ".svg")):
+            assert os.path.getsize(ctx.workdir.result_file(os.path.basename(path))) > 0
+        elif name == "circos.conf":
+            tracks[name] = _read(path).replace(vdir.encode(), b"<DIR>").replace(
+                f"{workname}.".encode(), b"<W>.")
+        else:
+            tracks[name] = _read(path)
+    annotated["visualize"] = (tracks, circular)
     return _read(picked), manifest, annotated
 
 
@@ -224,6 +241,8 @@ def test_slice_through_annotate_matches_jax(fms_inputs, jax_picked, monkeypatch,
         monkeypatch.setattr(port_device, "uses_host_mirrors", lambda d: False)
     _, _, got = _port_through_annotate(fms_inputs, host_mirrors)
     _, _, want = jax_picked
+    got = {k: v for k, v in got.items() if k != "visualize"}
+    want = {k: v for k, v in want.items() if k != "visualize"}
     assert sorted(got) == sorted(want) and len(got) == 4
     for name in want:
         assert got[name] == want[name], name
@@ -234,66 +253,120 @@ def test_slice_through_annotate_matches_jax(fms_inputs, jax_picked, monkeypatch,
         assert locs[gene][1] - locs[gene][0] == e - s - 1, gene
 
 
+@pytest.mark.parametrize("host_mirrors", [True, False], ids=["host", "tensor"])
+def test_slice_through_visualize_matches_jax(fms_inputs, jax_picked, monkeypatch,
+                                             host_mirrors):
+    """Exact: the run carried on into visualize gives the JAX package's seven
+    text track files byte for byte and its ``circos.conf`` up to the
+    directory, drawn with the same ``circular``; its depth track has one row
+    per base and every gene of ``locs.json`` has its row in ``gene.txt``."""
+    if not host_mirrors:
+        monkeypatch.setattr(port_device, "uses_host_mirrors", lambda d: False)
+    _, _, got = _port_through_annotate(fms_inputs, host_mirrors)
+    (tracks, circular), (want, want_circular) = got["visualize"], jax_picked[2]["visualize"]
+    assert circular == want_circular
+    assert sorted(tracks) == sorted(want) == sorted([
+        "gene.txt", "features.txt", "depth.txt", "gc.txt", "karyotype.txt",
+        "plus.txt", "tracks.json", "circos.conf"])
+    for name in want:
+        assert tracks[name] == want[name], name
+    locs = json.loads(got["locs.json"])
+    genes = [row.split("\t") for row in tracks["gene.txt"].decode().splitlines()]
+    assert len(genes) == len(locs)
+    for gene, v in locs.items():
+        assert ["mt1", str(v[0]), str(v[1]), gene.split("_")[0]] in genes, gene
+    lengths = {k["id"]: k["length"] for k in json.loads(tracks["tracks.json"])["karyotype"]}
+    assert tracks["depth.txt"].count(b"\n") == sum(lengths.values())
+    assert (b"break = 0.01r" in tracks["circos.conf"]) == circular
+
+
 def test_port_runs_without_jax(tmp_path):
     """In a fresh interpreter the port filters a batch, merges two runs,
-    imports every ported module and runs its CLI's filter, findmitoscaf and
-    annotate (a subcommand not ported yet exits with 3),
-    and neither jax nor any module of the JAX package (``mitoflex_tpu`` or
-    ``mitoflex_tpu.*``) enters sys.modules."""
+    imports every ported module, runs its CLI's filter, findmitoscaf,
+    annotate and ``all`` (the five stages, on paired reads), then
+    ``check_circular`` and ``ncbi --help``; no subcommand is left that exits
+    with 3, and neither jax nor any module of the JAX package
+    (``mitoflex_tpu`` or ``mitoflex_tpu.*``) enters sys.modules."""
     rng = np.random.default_rng(1)
     reads = synth.shotgun_reads(rng, synth.random_genome(rng, 800), 50, read_len=80)
     fq = synth.write_fastq(tmp_path / "in.fq", reads)
     fake = profile_fixture.build(tmp_path, rng)
     fa = tmp_path / "contigs.fa"
     fa.write_text(f">c1 flag=1 multi=100.0 len={len(fake.genome)}\n{fake.genome}\n")
+    pairs = synth.shotgun_reads(rng, fake.genome, 700, read_len=100, insert=300,
+                                circular=True, error_rate=0.002)
+    p1 = synth.write_fastq(tmp_path / "p1.fq", [p[0] for p in pairs])
+    p2 = synth.write_fastq(tmp_path / "p2.fq", [p[1] for p in pairs])
+    common = ["--basedir", str(tmp_path), "--device", "cpu", "--disable-taxa",
+              "--profile-dir", fake.profile_dir, "--clade", fake.clade,
+              "--genetic-code", "5"]
     fms_args = ["findmitoscaf", "--fastafile", str(fa), "--from-megahit",
-                "--workname", "f", "--basedir", str(tmp_path), "--device", "cpu",
-                "--disable-taxa", "--profile-dir", fake.profile_dir,
-                "--clade", fake.clade, "--genetic-code", "5", "--merge-method", "2"]
-    ann_args = ["annotate", "--fastafile", str(tmp_path / "f" / "f.result" / "f.picked.fa"),
-                "--workname", "a", "--basedir", str(tmp_path), "--device", "cpu",
-                "--disable-taxa", "--profile-dir", fake.profile_dir,
-                "--clade", fake.clade, "--genetic-code", "5"]
+                "--workname", "f", "--merge-method", "2"] + common
+    picked = tmp_path / "f" / "f.result" / "f.picked.fa"
+    ann_args = ["annotate", "--fastafile", str(picked), "--workname", "a"] + common
+    all_args = ["all", "--fastq1", p1, "--fastq2", p2, "--workname", "e2e",
+                "--kmer-list", "21,41", "--depth-list", "5,5",
+                "--min-abundance", "10"] + common
     code = f"""
-import json, sys
+import json, os, sys
 import numpy as np, torch
 from mitoflex_tpu_torch.ops import filter as F, kmer as K
 from mitoflex_tpu_torch.cli import main
+from mitoflex_tpu_torch import check_circular, ncbi
 seqs = torch.from_numpy(np.random.default_rng(0).integers(0, 5, (64, 32)).astype(np.int8))
 quals = torch.full((64, 32), 60, dtype=torch.int8)
 lens = torch.full((64,), 32, dtype=torch.int32)
 keep, h1, h2 = F.filter_reads(seqs, quals, lens, 10, 55, 0.2)
 run = K.count_chunk_scattered(seqs, lens, 21)
 merged = K.merge_scattered(run, run)
+os.environ["MITOFLEX_TORCH_PROFILE"] = {str(tmp_path / "prof")!r}
 rc = main(["filter", "--fastq1", {fq!r}, "--workname", "w", "--basedir",
            {str(tmp_path)!r}, "--device", "cpu", "--disable-taxa"])
-rc_np = main(["visualize", "--fastafile", "x.fa"])
+del os.environ["MITOFLEX_TORCH_PROFILE"]  # trace the filter command only
 rc_mods = main(["load_modules"])
 rc_fms = main({fms_args!r})
 rc_ann = main({ann_args!r})
+rc_all = main({all_args!r})
+rc_cc = check_circular.main(["--fasta", {str(picked)!r}, "--length", "1000",
+                             "--output", {str(tmp_path / "cc.json")!r}])
+try:
+    rc_ncbi = ncbi.main(["--help"])
+except SystemExit as e:
+    rc_ncbi = e.code
 jax_pkg = sorted(m for m in sys.modules
                  if m == "mitoflex_tpu" or m.startswith("mitoflex_tpu."))
 print(json.dumps({{"jax": "jax" in sys.modules, "jax_pkg": jax_pkg, "rc": rc,
-                  "rc_np": rc_np,
                   "rc_mods": rc_mods, "rc_fms": rc_fms, "rc_ann": rc_ann,
+                  "rc_all": rc_all, "rc_cc": rc_cc, "rc_ncbi": rc_ncbi,
                   "rows": merged[0].shape[1],
                   "keep": int(keep.sum())}}))
 """
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
     env["PYTHONPATH"] = REPO
-    env["MITOFLEX_TORCH_PROFILE"] = str(tmp_path / "prof")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                       cwd=str(tmp_path), env=env, timeout=300)
+                       cwd=str(tmp_path), env=env, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out == {"jax": False, "jax_pkg": [], "rc": 0, "rc_np": 3, "rc_mods": 0,
-                   "rc_fms": 0, "rc_ann": 0,
+    assert out == {"jax": False, "jax_pkg": [], "rc": 0, "rc_mods": 0,
+                   "rc_fms": 0, "rc_ann": 0, "rc_all": 0, "rc_cc": 0, "rc_ncbi": 0,
                    "rows": 2 * 64 * 12, "keep": out["keep"]}
-    picked = tmp_path / "f" / "f.result" / "f.picked.fa"
     assert "".join(picked.read_text().split("\n")[1:]) == fake.genome
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
     locs = json.loads((tmp_path / "a" / "a.result" / "locs.json").read_text())
     assert set(profile_fixture.GENES) <= set(locs)
+    assert "stages.visualize" in r.stdout and "check_circular" in r.stdout
+    # `all` ran without --keep-temp: the results stay, the stage files go
+    e2e = tmp_path / "e2e"
+    assert sorted(os.listdir(e2e / "e2e.result")) == [
+        "e2e.annotated.cds.fa", "e2e.annotated.rna.fa", "e2e.picked.fa", "e2e.png",
+        "e2e.svg", "locs.json"]
+    assert not (e2e / "e2e.temp").exists()
+    summary = [json.loads(ln) for ln in r.stdout.splitlines()
+               if ln.startswith('{"picked"') and '"plots"' in ln]
+    assert len(summary) == 1 and list(summary[0]) == ["picked", "locs", "circular", "plots"]
+    assert set(profile_fixture.GENES) <= set(
+        json.loads((e2e / "e2e.result" / "locs.json").read_text()))
+    assert list(json.loads((tmp_path / "cc.json").read_text())) == ["c1"]
 
 
 def test_chip_smoke_imports_only_the_port():
