@@ -99,6 +99,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    genome (a substring of the doubled genome, at most 50 bases short);
    K1 to K4 launched; the bait mapping's reads/s printed (generation 0's
    mapping repeated alone, its kept pairs equal to the run's).
+12. The device mesh (mitoflex_tpu_torch/parallel/mesh.py), in four parts:
+   right after phase 7, ``run_filter`` and ``run_assemble`` on phase 6's
+   reads with a mesh of 4 shards of the one card
+   (``make_mesh(devices=[cuda] * 4)``: sharded filter, ShardedKmerCounter,
+   sharded graph pass): clean FASTQs, ``contigs.fa`` and the scaffolds
+   byte-identical to phase 6's, K1 to K4 launched (counters zeroed just
+   before, read just after); right after phase 8, ``run_findmitoscaf`` and
+   ``run_annotate`` of phase 8's card contigs over 2 shards: picked FASTA
+   and ``locs.json`` byte-identical to phase 8's card run; each sharded
+   function alone on 4 shards against its single-device call on seeded
+   inputs (filter, partitioned counting with keys whose first word is at
+   least 2**31 and each shard inside its key range, mapper, SW, genewise,
+   both Viterbi passes: coordinates equal, scores within 1e-4); and
+   ``init_distributed`` with NCCL at world size 1 through a file://
+   rendezvous, one all_reduce, torn down. Mesh walls are printed beside
+   the single-device walls of this run.
 
 Kernel times are medians of CUDA-event-timed repeats after a warm-up; one
 repeat is one call of the kernel's wrapper between two events, so it holds
@@ -707,7 +723,8 @@ def _check_tracks(prefix: str, picked_path: str, locs_path: str, what: str) -> d
 def run_golden_slice(seed: int, tmp: str):
     """Returns the launch counts, the graph passes' inputs ((edge_words,
     edge_counts, k) each) and the LSM merges' inputs ((a_keys, a_vals,
-    b_keys, b_vals) each), both kept for phase 7."""
+    b_keys, b_vals) each), both kept for phase 7, and the run's inputs,
+    files and filter and assemble walls, for phase 12."""
     from mitoflex_tpu_torch import pipeline
     from mitoflex_tpu_torch.io import fasta
     from mitoflex_tpu_torch.ops import dbg, mapper, psort
@@ -863,7 +880,11 @@ def run_golden_slice(seed: int, tmp: str):
          f"{manifest['found_pcgs']}")
     _check_annotation(fake, os.path.dirname(annotated.path), cfg.run.workname,
                       "golden slice", hit[1])
-    return launches, passes, merges
+    golden = {"fake": fake, "f1": f1, "f2": f2, "clean1": res.clean1, "clean2": res.clean2,
+              "contigs": ctx.workdir.stage_file("assemble", "contigs.fa"),
+              "assembled": stage_out["run_assemble"], "filter_s": filter_s,
+              "assemble_s": assemble_s}
+    return launches, passes, merges, golden
 
 
 ANNOTATION_TOL_CODONS = 2
@@ -1019,6 +1040,7 @@ class _SmallRuns:
                      "cpu": os.path.join(tmp, "cli_cpu")}
         self.card_args: list = []   # the card run's flags, for the resume run
         self.summary: dict = {}     # the JSON line the card run printed
+        self.card_out = ""          # the card run's standard output
 
     def stage(self, side: str, name: str, f: str) -> str:
         return os.path.join(self.base[side], "cli", "cli.temp", name, f)
@@ -1050,6 +1072,7 @@ def run_small_all_vs_cpu(tmp: str, fake, f1: str, f2: str, have_mpl: bool,
     finally:
         cpu.kill()
     runs.summary = _json_line(out, "picked")
+    runs.card_out = out
     if "pipeline: device cuda" not in out and not card_device:
         raise AssertionError("`all` without --device did not run on the card")
     want_keys = ["picked", "locs", "circular"] + (["plots"] if have_mpl else [])
@@ -1289,7 +1312,9 @@ def _random_dna(rng, n: int) -> str:
     return "".join("ACGT"[int(i)] for i in rng.integers(0, 4, n))
 
 
-def check_genewise_vs_cpu(dev) -> None:
+def _genewise_batch():
+    """Seeded genewise hits: ``(kinds, (qa, ql, aa, tl))`` with frameshifts
+    +1, -1, +2, in-frame stops and a gene planted twice."""
     from mitoflex_tpu_torch.io import encoding
     from mitoflex_tpu_torch.models import codon
     from mitoflex_tpu_torch.ops import genewise
@@ -1323,7 +1348,15 @@ def check_genewise_vs_cpu(dev) -> None:
     for i, (q, t) in enumerate(zip(q_rows, t_rows)):
         qa[i, : len(q)], ta[i, : len(t)] = q, t
         ql[i], tl[i] = len(q), len(t)
-    aa = genewise.translate_windows(ta, 5)
+    return kinds, (qa, ql, genewise.translate_windows(ta, 5), tl)
+
+
+def check_genewise_vs_cpu(dev) -> None:
+    from mitoflex_tpu_torch.models import codon
+    from mitoflex_tpu_torch.ops import genewise
+
+    kinds, (qa, ql, aa, tl) = _genewise_batch()
+    B = len(kinds)
 
     def run(device):
         return genewise.genewise_align(
@@ -1426,6 +1459,269 @@ def check_cyk_vs_cpu(dev, tmp: str) -> None:
              f"{times[1] if times[1] else 'not counted in this run'}")
 
 
+# ----------------------------------------------------------- device mesh
+MESH_GOLDEN_SHARDS = 4
+MESH_SMALL_SHARDS = 2
+MESH_SCORE_TOL = 1e-4   # tests/test_torch_{phmm,sw,genewise}.py
+
+
+def _synced_s(fn, *a, **k):
+    """(result, seconds on the host clock up to a synchronise)."""
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _zeroed_counters():
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _same_bytes(a: str, b: str, what: str) -> None:
+    if _read_bytes(a) != _read_bytes(b):
+        raise AssertionError(f"mesh: {what} differs from the single-device run's")
+
+
+def run_mesh_golden(tmp: str, golden: dict, dev) -> dict:
+    """Phase 12, golden volume: filter and assemble of phase 6's reads over
+    a mesh of MESH_GOLDEN_SHARDS shards of one card; returns the launches."""
+    from mitoflex_tpu_torch import pipeline
+    from mitoflex_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg = _slice_config(tmp, "golden_mesh", True, golden["fake"])
+    ctx = pipeline.PipelineContext.create(cfg, device=dev)
+    ctx.mesh = mesh_mod.make_mesh(devices=[dev] * MESH_GOLDEN_SHARDS)
+    counters = _zeroed_counters()
+    res, filter_s = _synced_s(pipeline.run_filter, ctx, golden["f1"], golden["f2"])
+    assembled, assemble_s = _synced_s(pipeline.run_assemble, ctx, res.clean1, res.clean2,
+                                      inputs_sharded=True)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _same_bytes(res.clean1, golden["clean1"], "golden clean.1.fq")
+    _same_bytes(res.clean2, golden["clean2"], "golden clean.2.fq")
+    _same_bytes(ctx.workdir.stage_file("assemble", "contigs.fa"), golden["contigs"],
+                "golden contigs.fa")
+    _same_bytes(assembled, golden["assembled"], f"golden {os.path.basename(assembled)}")
+    if ctx.device.type == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"mesh golden: a kernel of the path never launched: {launches}")
+    _log(f"mesh golden volume ({MESH_GOLDEN_SHARDS} shards of {dev}): clean.1.fq, "
+         f"clean.2.fq, contigs.fa and {os.path.basename(assembled)} byte-identical to "
+         f"phase 6's; filter {filter_s:.3f} s (one device {golden['filter_s']:.3f} s), "
+         f"assemble {assemble_s:.3f} s (one device {golden['assemble_s']:.3f} s; "
+         f"sharded counting and graph pass); kernel launches {json.dumps(launches)}")
+    return launches
+
+
+def _stage_wall(out: str, fn: str) -> float:
+    """A stage's wall from the last ``Leaving ... after Xs`` line of a run's
+    log (findmitoscaf's own check calls it again inside)."""
+    tag = f"Leaving mitoflex_tpu_torch.stages.{fn} after "
+    lines = [ln for ln in out.splitlines() if tag in ln]
+    if not lines:
+        raise AssertionError(f"no {tag!r} line in the run's log")
+    return float(lines[-1].split(tag)[1].rstrip("s"))
+
+
+def run_mesh_small(tmp: str, fake, runs, dev) -> dict:
+    """Phase 12, small read set: findmitoscaf and annotate of phase 8's card
+    contigs over a mesh of MESH_SMALL_SHARDS shards of one card."""
+    from mitoflex_tpu_torch import pipeline
+    from mitoflex_tpu_torch.parallel import mesh as mesh_mod
+
+    stage = runs.stage
+    contigs = json.loads(_read_bytes(stage("card", "assemble", "manifest.json")))["outputs"][0]
+    cfg = _slice_config(os.path.join(tmp, "mesh_small"), "cli", False, fake)
+    ctx = pipeline.PipelineContext.create(cfg, device=dev)
+    ctx.mesh = mesh_mod.make_mesh(devices=[dev] * MESH_SMALL_SHARDS)
+    counters = _zeroed_counters()
+    found, find_s = _synced_s(pipeline.run_findmitoscaf, ctx, contigs)
+    annotated, annotate_s = _synced_s(pipeline.run_annotate, ctx, found.path)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _same_bytes(found.path, stage("card", "findmitoscaf", "cli.picked.fa"),
+                "small cli.picked.fa")
+    _same_bytes(annotated.path, stage("card", "annotation", "locs.json"), "small locs.json")
+    one_find = _stage_wall(runs.card_out, "findmitoscaf.findmitoscaf")
+    one_ann = _stage_wall(runs.card_out, "annotate.annotate")
+    _log(f"mesh small read set ({MESH_SMALL_SHARDS} shards of {dev}): picked FASTA and "
+         f"locs.json byte-identical to phase 8's card run; findmitoscaf {find_s:.3f} s "
+         f"(nhmmer {found.walls['nhmmer']:.3f} s; one device {one_find:.2f} s), annotate "
+         f"{annotate_s:.3f} s (tblastn {annotated.walls['tblastn']:.3f} s, genewise "
+         f"{annotated.walls['genewise']:.3f} s; one device {one_ann:.2f} s); kernel "
+         f"launches {json.dumps(launches)}")
+    return launches
+
+
+def _equal_tensors(got, want, what: str) -> None:
+    for name, g, w in zip(getattr(want, "_fields", range(len(want))), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: {name} differs from the single-device call")
+
+
+def check_mesh_functions(dev, fake) -> None:
+    """Phase 12: each sharded function alone, on seeded inputs of shapes the
+    path gives it, against its single-device counterpart on the same card."""
+    from mitoflex_tpu_torch.io import encoding
+    from mitoflex_tpu_torch.io.fasta import FastaRecord
+    from mitoflex_tpu_torch.models import codon
+    from mitoflex_tpu_torch.models.profiles import ProfileSet
+    from mitoflex_tpu_torch.ops import filter as F
+    from mitoflex_tpu_torch.convert import u32_numpy
+    from mitoflex_tpu_torch.ops import genewise, kmer, mapper, phmm, spill, sw
+    from mitoflex_tpu_torch.parallel import mesh as mesh_mod
+    from mitoflex_tpu_torch.testing import synth
+
+    mesh = mesh_mod.make_mesh(devices=[dev] * MESH_GOLDEN_SHARDS)
+    rng = np.random.default_rng(29)
+    walls = {}
+
+    def both(name, sharded, single):
+        got, walls[name + " mesh"] = _synced_s(sharded)
+        want, walls[name] = _synced_s(single)
+        return got, want
+
+    # the filter at a golden batch that no shard count divides
+    B, L = 8191, 160
+    seqs = rng.integers(0, 5, (B, L)).astype(np.int8)
+    quals = rng.integers(35, 75, (B, L)).astype(np.int8)
+    lens = rng.integers(0, L + 1, B).astype(np.int32)
+    got, want = both("filter", lambda: mesh_mod.filter_reads_sharded(mesh, seqs, quals, lens),
+                     lambda: F.filter_reads(*(torch.from_numpy(x).to(dev)
+                                              for x in (seqs, quals, lens)), 10, 55, 0.2))
+    _equal_tensors(got, want, "filter_reads_sharded")
+
+    # partitioned counting (k = 31): half the keys have a first word >= 2**31
+    reads = rng.integers(0, 4, (4096, 150)).astype(np.int8)
+    rlens = np.full(4096, 150, np.int32)
+    k = 31
+    parts, walls["partitioned count mesh"] = _synced_s(
+        mesh_mod.count_kmers_sharded_partitioned, mesh, reads, rlens, k)
+
+    (keys, counts), walls["partitioned count"] = _synced_s(
+        kmer.count_chunk_host, reads, rlens, k, canonical=False, device=dev)
+    edges = [0, *spill.uniform_inner_boundaries(mesh.size).tolist(), 1 << 32]
+    high = 0
+    for j, (w, c, n) in enumerate(parts):
+        first = w[0].to(torch.int64) & 0xFFFFFFFF
+        if n and not (edges[j] <= int(first.min()) and int(first.max()) < edges[j + 1]):
+            raise AssertionError(f"partitioned count: shard {j} holds keys outside its range")
+        high += int((first >= 1 << 31).sum())
+    if not np.array_equal(np.concatenate([u32_numpy(w).T for w, _, _ in parts]), keys) \
+            or not np.array_equal(np.concatenate([c.cpu().numpy() for _, c, _ in parts]),
+                                  counts.astype(np.int64)) or high == 0:
+        raise AssertionError("count_kmers_sharded_partitioned differs from one device")
+
+    # the mapper: golden-length reads against a two-contig index
+    genome = fake.genome
+    recs = [FastaRecord("c0", genome[: len(genome) // 2]),
+            FastaRecord("c1", genome[len(genome) // 2:])]
+    index = mapper.ContigIndex.build(recs, dev)
+    mreads = [r for r, _ in synth.shotgun_reads(rng, genome, 8191, read_len=150,
+                                                error_rate=0.01)]
+    mseqs = np.full((len(mreads), 150), encoding.N, np.int8)
+    for i, r in enumerate(mreads):
+        mseqs[i, : len(r)] = encoding.encode(r)
+    mlens = np.asarray([len(r) for r in mreads], np.int32)
+    got, want = both(
+        "mapper",
+        lambda: mesh_mod.map_reads_sharded(mesh, index.keys, index.contig_of,
+                                           index.pos_of, mseqs, mlens),
+        lambda: mapper._map_device(index.keys, index.contig_of, index.pos_of,
+                                   torch.from_numpy(mseqs).to(dev),
+                                   torch.from_numpy(mlens).to(dev)))
+    _equal_tensors(got, want, "map_reads_sharded")
+
+    def close(got, want, what):
+        for name, g, w in zip(want._fields, got, want):
+            if name == "score":
+                err = float((g - w).abs().max())
+                if err > MESH_SCORE_TOL:
+                    raise AssertionError(f"{what}: score error {err}")
+            elif not torch.equal(g, w):
+                raise AssertionError(f"{what}: {name} differs from the single-device call")
+
+    # Smith-Waterman: 61 nucleotide pairs with planted mismatches
+    q = rng.integers(0, 4, (61, 80)).astype(np.int8)
+    t = q.copy()
+    t[:, 10:14] = (t[:, 10:14] + 1) % 4
+    ql = np.full(61, 80, np.int32)
+    sub = sw.nucleotide_matrix()
+    got, want = both("sw", lambda: mesh_mod.sw_align_sharded(mesh, q, ql, t, ql, sub, 5.0, 2.0),
+                     lambda: sw.sw_align(*(torch.from_numpy(x).to(dev) for x in (q, ql, t, ql)),
+                                         sub, 5.0, 2.0))
+    close(got, want, "sw_align_sharded")
+
+    # genewise: the seeded hits of phase 9
+    _, batch = _genewise_batch()
+    got, want = both("genewise",
+                     lambda: mesh_mod.genewise_align_sharded(mesh, *batch, codon.blosum62()),
+                     lambda: genewise.genewise_align(
+                         *(torch.from_numpy(x).to(dev) for x in batch), codon.blosum62()))
+    close(got, want, "genewise_align_sharded")
+
+    # both Viterbi passes: the fixture's PCG models on windows of its genome
+    hmms = ProfileSet(fake.profile_dir).cds_hmms(fake.clade)
+    staged = [phmm.stage_profile(h, device=dev) for h in hmms]
+    pad = max(p.msc.shape[0] for p in staged)
+    stack = phmm.stack_profiles([phmm.stage_profile(h, pad_to=pad, device=dev) for h in hmms])
+    both_strands = genome + encoding.revcomp_str(genome)
+    starts = range(0, len(both_strands) - 512, 300)
+    win = np.stack([encoding.encode(both_strands[s: s + 512]) for s in starts])
+    wl = np.full(len(win), 512, np.int32)
+    wl[::7] = 300
+    model_lens = [h.length for h in hmms]
+    got, want = both(
+        "viterbi scores",
+        lambda: mesh_mod.viterbi_scores_multi_sharded(mesh, stack, model_lens, win, wl),
+        lambda: phmm.viterbi_scores_multi(stack, model_lens, torch.from_numpy(win).to(dev),
+                                          torch.from_numpy(wl).to(dev)))
+    err = float((got - want).abs().max())
+    if err > MESH_SCORE_TOL:
+        raise AssertionError(f"viterbi_scores_multi_sharded: score error {err}")
+    got, want = both(
+        "viterbi scan",
+        lambda: mesh_mod.viterbi_scan_sharded(mesh, staged[0], win, wl, hmms[0].length),
+        lambda: phmm.viterbi_scan(staged[0], torch.from_numpy(win).to(dev),
+                                  torch.from_numpy(wl).to(dev), hmms[0].length))
+    close(got, want, "viterbi_scan_sharded")
+    _log(f"mesh functions alone ({MESH_GOLDEN_SHARDS} shards of {dev}) against one "
+         f"device: filter {B} x {L} bit-equal; partitioned count of "
+         f"{2 * reads.shape[0] * (reads.shape[1] - k + 1)} k-mers (k={k}, {high} keys with a first word >= 2**31) equal, each shard "
+         f"within its key range; mapper {len(mreads)} x 150 equal; SW 61 pairs, genewise "
+         f"{len(batch[0])} hits, Viterbi scores ({len(hmms)} models) and envelopes of "
+         f"{len(win)} windows: coordinates equal, scores within {MESH_SCORE_TOL}; walls, "
+         f"s: " + ", ".join(f"{k_}: {v:.4f}" for k_, v in walls.items()))
+
+
+def check_nccl_world1(tmp: str) -> None:
+    """Phase 12: a process group of world size 1 on NCCL through
+    ``init_distributed``, one all_reduce, torn down."""
+    import torch.distributed as dist
+
+    from mitoflex_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    got = distributed.init_distributed(
+        backend="nccl", rank=0, world_size=1,
+        init_method="file://" + os.path.join(tmp, "nccl_rendezvous"))
+    try:
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        if got != (0, 1) or distributed.shard_info() != (0, 1) or not torch.equal(
+                x.cpu(), torch.arange(8, dtype=torch.float32)):
+            raise AssertionError(f"NCCL world 1: init {got}, all_reduce {x.tolist()}")
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    if dist.is_initialized():
+        raise AssertionError("NCCL world 1: the group is still up")
+    _log(f"init_distributed: {backend} group of world size 1 through a file:// "
+         f"rendezvous, all_reduce on the card, torn down "
+         f"({time.perf_counter() - t0:.2f} s)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -1474,13 +1770,18 @@ def main() -> int:
     tmp = args.out or tempfile.mkdtemp(prefix="mitoflex_chip_smoke_")
     os.makedirs(tmp, exist_ok=True)
     try:
-        launches, passes, merges = phase("6 golden all", run_golden_slice, args.seed, tmp)
+        launches, passes, merges, golden = phase("6 golden all", run_golden_slice,
+                                                 args.seed, tmp)
         k2_golden = phase("7 golden K2 K3", check_merge_golden, merges)
         k3_golden = phase("7 golden K2 K3", check_graph_pass_k3, passes)
         del passes, merges
+        phase("12 mesh", run_mesh_golden, tmp, golden, dev)
         fake, f1, f2 = make_small_reads(args.seed, tmp)
         have_mpl = _have_matplotlib()
         runs = phase("8 small slice", run_small_all_vs_cpu, tmp, fake, f1, f2, have_mpl)
+        phase("12 mesh", run_mesh_small, tmp, fake, runs, dev)
+        phase("12 mesh", check_mesh_functions, dev, fake)
+        phase("12 mesh", check_nccl_world1, tmp)
         phase("9 genewise CYK", check_genewise_vs_cpu, dev)
         phase("9 genewise CYK", check_cyk_vs_cpu, dev, tmp)
         cpu_bim = phase("10 command line", run_command_line_rest, tmp, fake, f1, f2,

@@ -229,7 +229,7 @@ PORTED_MODULES = [
     "models.nhmmer", "models.profiles", "models.proteindb", "models.taxonomy",
     "stages.filter", "stages.assemble", "stages.graph_clean", "stages.scaffold",
     "stages.merge", "stages.findmitoscaf", "stages.annotate", "stages.visualize",
-    "parallel.distributed",
+    "parallel.distributed", "parallel.mesh", "parallel.graph_mesh",
     "testing.synth", "testing.profile_fixture", "testing.cm_fixture", "testing.kernel_cases",
     "pipeline", "check_circular", "ncbi",
 ]

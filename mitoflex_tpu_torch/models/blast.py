@@ -5,7 +5,8 @@ the window selection and the hit algebra (``blast_filter``,
 ``wash_blast_results``) are the reference's host code, copied because the
 reference module imports jax. The candidate windows are scored by the
 port's batched Smith-Waterman (ops/sw.py) on the caller's ``device``, in
-batches of 64 pairs padded only to their longest row.
+batches of 64 pairs padded only to their longest row, each batch sharded
+over a ``mesh`` when one is given (parallel/mesh.py).
 
 - ``tblastn``: protein DB vs six-frame-translated contigs (BLOSUM62), an
   outfmt-6 frame with nucleotide subject coordinates (sstart > send on the
@@ -31,6 +32,7 @@ from ..models.proteindb import ProteinRecord, parse_protein_id
 
 from ..convert import host, to_device
 from ..device import resolve_device
+from ..parallel import mesh as mesh_mod
 from ..ops import sw as sw_ops
 
 OUTFMT6 = [
@@ -65,19 +67,27 @@ def _pad_rows(rows: List[np.ndarray], fill: int) -> Tuple[np.ndarray, np.ndarray
 
 
 def _batched_sw(q_rows, t_rows, submat, gap_open, gap_extend, fill, batch=64,
-                device=None):
+                device=None, mesh=None):
     """Align row i of q_rows vs row i of t_rows on ``device``; returns the
-    nine SwHits fields as numpy arrays (None when there are no rows)."""
+    nine SwHits fields as numpy arrays (None when there are no rows). With
+    a ``mesh`` of more than one shard each batch's pairs shard over it
+    (parallel.mesh.sw_align_sharded), the reference's replacement for the
+    tblastn query-DB process pool; per-row results are the single-device
+    kernel's."""
     dev = resolve_device(device)
     sub = torch.as_tensor(submat, dtype=torch.float32, device=dev)
     res = []
     for b0 in range(0, len(q_rows), batch):
         qs, ql = _pad_rows(q_rows[b0 : b0 + batch], fill)
         ts, tl = _pad_rows(t_rows[b0 : b0 + batch], fill)
-        hits = sw_ops.sw_align(
-            to_device(qs, dev), to_device(ql, dev), to_device(ts, dev),
-            to_device(tl, dev), sub, gap_open, gap_extend,
-        )
+        if mesh is not None and mesh.size > 1:
+            hits = mesh_mod.sw_align_sharded(mesh, qs, ql, ts, tl, submat,
+                                             gap_open, gap_extend)
+        else:
+            hits = sw_ops.sw_align(
+                to_device(qs, dev), to_device(ql, dev), to_device(ts, dev),
+                to_device(tl, dev), sub, gap_open, gap_extend,
+            )
         res.append([host(x) for x in hits])
     if not res:
         return None
@@ -188,6 +198,7 @@ def tblastn(
     gap_extend: float = 1.0,
     window_slack: int = 30,
     device=None,
+    mesh=None,
 ) -> pd.DataFrame:
     """Protein queries vs translated contigs → outfmt-6 frame."""
     submat = codon.blosum62()
@@ -211,7 +222,7 @@ def tblastn(
                 meta.append((qi, ci, frame, lo))
 
     out = _batched_sw(q_rows, t_rows, submat, gap_open, gap_extend,
-                      codon.X_CODE, device=device)
+                      codon.X_CODE, device=device, mesh=mesh)
     rows = []
     if out is not None:
         score, qf, qt, tf, tt, nid, ncol, ngo, ngc = out
@@ -258,6 +269,7 @@ def blastn(
     window_slack: int = 50,
     skip_self: bool = False,
     device=None,
+    mesh=None,
 ) -> pd.DataFrame:
     """Nucleotide vs nucleotide → outfmt-6 frame (both strands)."""
     submat = sw_ops.nucleotide_matrix()
@@ -280,7 +292,7 @@ def blastn(
                 meta.append((qi, si, strand, lo))
 
     out = _batched_sw(q_rows, t_rows, submat, gap_open, gap_extend,
-                      encoding.N, device=device)
+                      encoding.N, device=device, mesh=mesh)
     rows = []
     if out is not None:
         score, qf, qt, tf, tt, nid, ncol, ngo, ngc = out

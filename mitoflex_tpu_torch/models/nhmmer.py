@@ -30,6 +30,7 @@ from ..utils.logger import logger
 
 from ..convert import host, to_device
 from ..device import resolve_device
+from ..parallel import mesh as mesh_mod
 from ..ops import phmm as phmm_ops
 
 TBLOUT_COLUMNS = [
@@ -61,16 +62,26 @@ def _windows_for(length: int, win: int, overlap: int) -> List[Tuple[int, int]]:
     return out
 
 
-def _scores_multi(stack, model_lens, seqs, lens, device) -> np.ndarray:
-    """Pass 1: every model of the group scores every window, [M, B]."""
+def _scores_multi(stack, model_lens, seqs, lens, device, mesh=None) -> np.ndarray:
+    """Pass 1: every model of the group scores every window, [M, B];
+    sharded over the windows when a mesh of more than one shard is given
+    (parallel.mesh.viterbi_scores_multi_sharded), bit-identical per window
+    to the single-device sweep."""
+    if mesh is not None and mesh.size > 1:
+        return host(mesh_mod.viterbi_scores_multi_sharded(mesh, stack, model_lens,
+                                                          seqs, lens))
     return host(phmm_ops.viterbi_scores_multi(
         stack, model_lens, to_device(seqs, device), to_device(lens, device)))
 
 
-def _scan(prof, seqs, lens, model_len, device) -> phmm_ops.HmmHits:
-    """Pass 2: envelopes of one model, as numpy arrays."""
-    hits = phmm_ops.viterbi_scan(prof, to_device(seqs, device),
-                                 to_device(lens, device), model_len)
+def _scan(prof, seqs, lens, model_len, device, mesh=None) -> phmm_ops.HmmHits:
+    """Pass 2: envelopes of one model, as numpy arrays; sharded over the
+    windows when a mesh of more than one shard is given."""
+    if mesh is not None and mesh.size > 1:
+        hits = mesh_mod.viterbi_scan_sharded(mesh, prof, seqs, lens, model_len)
+    else:
+        hits = phmm_ops.viterbi_scan(prof, to_device(seqs, device),
+                                     to_device(lens, device), model_len)
     return phmm_ops.HmmHits(*(host(x) for x in hits))
 
 
@@ -81,6 +92,7 @@ def nhmmer_search(
     score_threshold: float = 0.0,
     batch_windows: int = 512,
     device=None,
+    mesh=None,
 ) -> pd.DataFrame:
     """Scan every contig (both strands) against every profile.
 
@@ -88,7 +100,9 @@ def nhmmer_search(
     and scored together (pass 1); windows that pass are rescanned per model
     for envelopes (pass 2), with the reference's mask-and-rescan multihit
     rounds. Overlapping windows reporting one alignment are deduplicated
-    as the reference does."""
+    as the reference does. With a ``mesh`` of more than one shard both
+    passes shard the windows over it, the profiles replicated; the frame is
+    the single-device one."""
     dev = resolve_device(device)
     rows: List[dict] = []
     codes = [c.codes for c in contigs]
@@ -130,7 +144,7 @@ def nhmmer_search(
                 arr = codes[w.contig_idx] if w.strand == 1 else rc_codes[w.contig_idx]
                 seqs[i, : w.length] = arr[w.offset : w.offset + w.length]
                 lens[i] = w.length
-            pre_all = _scores_multi(stack, model_lens, seqs, lens, dev)  # [M, B]
+            pre_all = _scores_multi(stack, model_lens, seqs, lens, dev, mesh)  # [M, B]
             for mi, i_model in enumerate(idxs):
                 hmm, prof = staged[i_model]
                 L = hmm.length
@@ -156,7 +170,7 @@ def nhmmer_search(
                 for _round in range(4):
                     if not active:
                         break
-                    hits = _scan(prof, seqs2, lens2, L, dev)
+                    hits = _scan(prof, seqs2, lens2, L, dev, mesh)
                     sf, st = hits.seq_from, hits.seq_to
                     score = hits.score + phmm_ops.length_correction_bits(
                         lens2, st - sf + 1

@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..convert import i32_bits, to_device, u32_numpy
+from ..convert import i32_bits, to_device, u32_numpy, u32_values
 from ..device import resolve_device
 from . import psort
 
@@ -194,6 +194,73 @@ def pull_scattered(words: torch.Tensor, counts: torch.Tensor
     totals = np.add.reduceat(cnt, starts)
     keep = totals > 0
     return keys[starts][keep], totals[keep]
+
+
+def run_totals(words: torch.Tensor, counts: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-key sums of a key-sorted run ``words`` [W, n] with non-negative
+    int64 ``counts`` [n]: ``(totals [n], last [n] bool)``, where ``last``
+    marks each key's last row and ``totals`` holds the key's sum there.
+    Reads nothing back to the host."""
+    n = counts.shape[0]
+    diff = _row_diff(words)
+    cs = torch.cumsum(counts, 0)
+    start = torch.cummax(torch.where(diff, cs - counts, 0), 0).values
+    last = torch.ones(n, dtype=torch.bool, device=counts.device)
+    last[:-1] = diff[1:]
+    return cs - start, last
+
+
+def scattered_totals(words: torch.Tensor, counts: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The half of :func:`scattered_to_unique` that stays on the device:
+    ``(totals [n] int64, keep [n] bool)``, ``keep`` marking the rows that
+    end a key with a non-zero total."""
+    tot, last = run_totals(words, u32_values(counts))
+    return tot, last & (tot > 0)
+
+
+def scattered_to_unique(words: torch.Tensor, counts: torch.Tensor):
+    """Compact a SCATTERED run to its sorted unique keys and totals:
+    ``(unique [W, U], totals [U] int64, U)``; zero-total keys (invalid
+    windows) are dropped. Port of the JAX package's ``scattered_to_unique``
+    with exact sizes (no padding rows) and int64 totals of the uint32 row
+    counts, which cannot wrap (the reference's int32 cumsum needed totals
+    below 2**31)."""
+    tot, keep = scattered_totals(words, counts)
+    u = words[:, keep]
+    return u, tot[keep], u.shape[1]
+
+
+def sort_count_totals(words: torch.Tensor, valid: torch.Tensor,
+                      weights: Optional[torch.Tensor] = None):
+    """The half of :func:`sort_count_unique` that stays on the device:
+    ``(sorted words [W, n], totals [n] int64, keep [n] bool)`` with the
+    valid rows first, ``keep`` marking each valid key's last row."""
+    W = words.shape[0]
+    flat = words.reshape(W, -1)
+    v = valid.reshape(-1)
+    if weights is None:
+        wt = torch.ones(v.shape[0], dtype=torch.int64, device=v.device)
+    else:
+        wt = weights.reshape(-1).to(torch.int64)
+    # a leading invalid flag word sorts the invalid rows last
+    keyed = torch.cat([(~v).to(torch.int32)[None], flat])
+    perm = psort.lexsort_words(keyed)
+    s, sv = keyed[:, perm], v[perm]
+    tot, last = run_totals(s, torch.where(sv, wt[perm], 0))
+    return s[1:], tot, last & sv
+
+
+def sort_count_unique(words: torch.Tensor, valid: torch.Tensor,
+                      weights: Optional[torch.Tensor] = None):
+    """Sorted unique k-mers of ``words`` [W, ...] where ``valid``, with their
+    occurrence counts (or sums of ``weights``): ``(unique [W, U], counts [U]
+    int64, U)``. Port of the JAX package's ``sort_count_unique`` with exact
+    sizes: no all-ones padding rows after the first U."""
+    s, tot, keep = sort_count_totals(words, valid, weights)
+    u = s[:, keep]
+    return u, tot[keep], u.shape[1]
 
 
 def _count_weighted(seqs: torch.Tensor, lengths: torch.Tensor, k: int,
@@ -491,6 +558,15 @@ def union_ranks(a: torch.Tensor, b: torch.Tensor):
     kernel K3 on a card), and a column's rank is the number of key changes
     before it in the merged run. No second sort joins the inputs to the
     table."""
+    s, new, rank_a, rank_b = union_merge(a, b)
+    u = s[:, new]
+    return u, u.shape[1], rank_a, rank_b
+
+
+def union_merge(a: torch.Tensor, b: torch.Tensor):
+    """The half of :func:`union_ranks` that stays on the device: ``(merged
+    [W, na + nb], new [na + nb] bool, rank_a, rank_b)``; the unique table is
+    ``merged[:, new]``."""
     na, nb = a.shape[1], b.shape[1]
     dev = a.device
     perm = psort.lexsort_words(b)
@@ -501,8 +577,7 @@ def union_ranks(a: torch.Tensor, b: torch.Tensor):
     new = _row_diff(s)
     rank = torch.empty(na + nb, dtype=torch.int64, device=dev)
     rank[pos[0].to(torch.int64)] = torch.cumsum(new.to(torch.int64), 0) - 1
-    u = s[:, new]
-    return u, u.shape[1], rank[:na], rank[na:]
+    return s, new, rank[:na], rank[na:]
 
 
 def multiword_join_sorted(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:

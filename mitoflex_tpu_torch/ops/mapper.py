@@ -33,6 +33,7 @@ from ..io.fasta import FastaRecord
 from .. import device as device_mod
 from ..convert import host, to_device
 from . import kmer as kmer_ops
+from ..parallel import mesh as mesh_mod
 
 K = 15
 SEED_STEP = 4
@@ -249,8 +250,13 @@ def map_batch(
     min_votes: int = 2,
     sample_step: int = SEED_STEP,
     max_key_mult: int = MAX_MULT,
+    mesh=None,
 ) -> MappedBatch:
-    """Place a numpy batch of reads on the index's device."""
+    """Place a numpy batch of reads on the index's device. With a ``mesh``
+    (parallel/mesh.py) of more than one shard the reads shard over it, the
+    index replicated, each shard through the tensor mapper on every device
+    type (parallel.mesh.map_reads_sharded); the placements are the
+    single-device ones."""
     B, L = seqs.shape
     if B == 0 or L < K or index.n_entries == 0:
         return MappedBatch(
@@ -260,14 +266,22 @@ def map_batch(
     lengths = np.asarray(lengths)
     # columns past the longest read hold only invalid windows
     seqs = np.asarray(seqs)[:, : max(int(lengths.max(initial=0)), K)]
-    if device_mod.uses_host_mirrors(index.device):
-        out = _map_host(index, seqs, lengths, min_votes, sample_step, max_key_mult)
-    else:
+    if mesh is not None and mesh.size > 1:
+        res = mesh_mod.map_reads_sharded(
+            mesh, index.keys, index.contig_of, index.pos_of, seqs, lengths,
+            min_votes, sample_step, max_key_mult,
+        )
+    elif not device_mod.uses_host_mirrors(index.device):
         dev = index.device
         res = _map_device(
             index.keys, index.contig_of, index.pos_of, to_device(seqs, dev),
             to_device(lengths, dev), min_votes, sample_step, max_key_mult,
         )
+    else:
+        res = None
+    if res is None:
+        out = _map_host(index, seqs, lengths, min_votes, sample_step, max_key_mult)
+    else:
         contig, pos, strand, votes, raw = (host(x) for x in res)
         out = (contig.astype(np.int32), pos.astype(np.int32),
                strand.astype(np.int8), votes.astype(np.int32),
@@ -298,16 +312,18 @@ def coverage_of_reads(
     batches,
     min_votes: int = 2,
     device=None,
+    mesh=None,
 ) -> Tuple[List[np.ndarray], Dict[str, float], int, int]:
     """Map all read batches (each with ``seqs``, ``lengths`` and ``count``)
-    on ``device``; returns (per-contig depth arrays, contig id -> mean
-    depth, n_mapped, n_total)."""
+    on ``device``, or sharded over ``mesh``; returns (per-contig depth
+    arrays, contig id -> mean depth, n_mapped, n_total)."""
     index = ContigIndex.build(contigs, device)
     depth = [np.zeros(int(n) + 1, np.int64) for n in index.lengths]
     n_mapped = n_total = 0
     for batch in batches:
         count = batch.count
-        mapped = map_batch(index, batch.seqs[:count], batch.lengths[:count], min_votes)
+        mapped = map_batch(index, batch.seqs[:count], batch.lengths[:count], min_votes,
+                           mesh=mesh)
         add_coverage(depth, index, mapped, batch.lengths[:count])
         n_mapped += int((mapped.contig >= 0).sum())
         n_total += count

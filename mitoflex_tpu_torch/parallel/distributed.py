@@ -1,18 +1,63 @@
-"""Process sharding for the port.
+"""Multi-host initialization and sharded ingestion helpers.
 
-``shard_info`` reports this process's (rank, world size) from
-``torch.distributed`` when a process group is up, else (0, 1). The FASTQ
-byte-range splitters (``host_file_range``, ``host_pair_ranges``) give every
-process its record-aligned share of an input file. Multi-device and
-multi-process runs of the stages are not ported yet (ROADMAP).
+Port of mitoflex_tpu/parallel/distributed.py. The devices of one host form
+an in-process mesh (parallel/mesh.py); a process group is the multi-host
+route, the counterpart of ``jax.distributed``. ``init_distributed`` starts
+it, ``shard_info`` reports this process's (rank, world size) from it, else
+(0, 1), and the FASTQ byte-range splitters (``host_file_range``,
+``host_pair_ranges``) give every process its record-aligned share of an
+input file, so ingestion needs no coordination. As in the reference, each
+process then filters and assembles its own slice of the reads
+(tests/test_torch_distributed.py).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
+import torch
 import torch.distributed as torch_dist
+
+from ..utils.logger import logger
+
+
+def init_distributed(
+    backend: Optional[str] = None,
+    rank: Optional[int] = None,
+    world_size: Optional[int] = None,
+    init_method: Optional[str] = None,
+) -> Tuple[int, int]:
+    """Start the default process group from the arguments or the standard
+    variables ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``;
+    returns (rank, world size). When neither an address (``init_method``
+    or ``MASTER_ADDR``) nor a world size is given, no group is started and
+    (0, 1) comes back, the reference's rule. ``backend`` defaults to NCCL
+    where a card is visible, each process on the card of its local rank
+    (``LOCAL_RANK``, else the rank modulo the card count), and to gloo on
+    the CPU."""
+    env = os.environ
+    if rank is None and "RANK" in env:
+        rank = int(env["RANK"])
+    if world_size is None and "WORLD_SIZE" in env:
+        world_size = int(env["WORLD_SIZE"])
+    if init_method is None and "MASTER_ADDR" in env:
+        init_method = "env://"
+    if init_method is None and world_size is None:
+        return 0, 1
+    if rank is None or world_size is None:
+        raise ValueError(f"init_distributed: a process group needs a rank and a world "
+                         f"size, got rank {rank}, world size {world_size}")
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        local = int(env.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+    torch_dist.init_process_group(backend, init_method=init_method or "env://",
+                                  rank=rank, world_size=world_size)
+    rank, world = torch_dist.get_rank(), torch_dist.get_world_size()
+    logger.info(f"distributed: process {rank}/{world} ({backend})")
+    return rank, world
 
 
 def shard_info() -> Tuple[int, int]:

@@ -3,7 +3,9 @@
 Port of mitoflex_tpu/pipeline.py: each stage reads and writes files under
 ``<workname>.temp/<stage>/`` with a manifest, so a stage can be re-run on
 its own (the resume contract of ``run_all``). The context carries the run's
-``torch.device``, which every stage receives explicitly.
+``torch.device``, which every stage receives explicitly, and its device
+mesh (parallel/mesh.py), which the stages that the reference shards receive
+as ``mesh``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from .utils.logger import logger
 from .utils.workdir import WorkDir
 
 from .device import DeviceLike, resolve_device
+from .parallel.mesh import DeviceMesh, make_mesh
 
 
 @dataclass
@@ -34,13 +37,23 @@ class PipelineContext:
     device: torch.device
     profiles: Optional[ProfileSet] = None
     taxonomy: Optional[Taxonomy] = None
+    mesh: Optional[DeviceMesh] = None
 
     @classmethod
     def create(cls, cfg: PipelineConfig, device: DeviceLike = None) -> "PipelineContext":
+        """The run's context on ``device``. A data mesh is built, as the
+        reference builds one, when ``cfg.run.mesh_shape`` is set or, on a
+        card, when more than one card is visible; where it cannot be built
+        (a shape larger than the visible cards) this raises: nothing falls
+        back to one device."""
         wd = WorkDir(cfg.run.basedir, cfg.run.workname).create()
         logger.init(wd.log_path, cfg.run.log_level)
         dev = resolve_device(device)
         logger.info(f"pipeline: device {dev}")
+        mesh = None
+        if cfg.run.mesh_shape or (dev.type == "cuda" and torch.cuda.device_count() > 1):
+            mesh = make_mesh(cfg.run.mesh_shape, tuple(cfg.run.mesh_axes), device=dev)
+            logger.info(f"pipeline: data mesh over {mesh.size} shards {list(mesh.devices)}")
         profiles = None
         try:
             profiles = get_profiles(cfg.run.profile_dir)
@@ -49,7 +62,7 @@ class PipelineContext:
         taxonomy = None
         if not cfg.search.disable_taxa:
             taxonomy = load_taxonomy(cfg.run.taxonomy_dump)
-        return cls(cfg, wd, dev, profiles, taxonomy)
+        return cls(cfg, wd, dev, profiles, taxonomy, mesh)
 
     @property
     def gene_code(self) -> int:
@@ -87,7 +100,7 @@ def run_filter(ctx: PipelineContext, fastq1: str, fastq2: Optional[str] = None,
         if fastq2 else None
     )
     res = filter_reads(ctx.cfg.filter, fastq1, clean1, fastq2, clean2,
-                       host_shard=(pid, n_hosts), device=ctx.device)
+                       host_shard=(pid, n_hosts), device=ctx.device, mesh=ctx.mesh)
     wd.write_manifest("cleandata", {
         "inputs": [fastq1] + ([fastq2] if fastq2 else []),
         "outputs": [res.clean1] + ([res.clean2] if res.clean2 else []),
@@ -109,7 +122,7 @@ def run_assemble(ctx: PipelineContext, clean1: str, clean2: Optional[str] = None
     assemble(ctx.cfg.assemble, clean1, clean2, out,
              max_read_len=ctx.cfg.filter.max_read_len,
              host_shard=(0, 1) if inputs_sharded else None,
-             spill_dir=wd.stage_dir("assemble"), device=ctx.device)
+             spill_dir=wd.stage_dir("assemble"), device=ctx.device, mesh=ctx.mesh)
     if not ctx.cfg.assemble.disable_scaffolding and clean2:
         out2 = wd.stage_file("assemble", "scaffolds.fa")
         scaffold_contigs(ctx.cfg.assemble, out, clean1, clean2, out2,
@@ -151,7 +164,8 @@ def run_findmitoscaf(
                 if path:
                     yield from fastq.read_batches(path, 8192, ctx.cfg.filter.max_read_len)
 
-        _, means, _, _ = mapper.coverage_of_reads(records, batches(), device=ctx.device)
+        _, means, _, _ = mapper.coverage_of_reads(records, batches(), device=ctx.device,
+                                                  mesh=ctx.mesh)
         records = [r.with_attrs(flag=1, multi=round(means.get(r.id, 0.0), 2))
                    for r in records]
     res = findmitoscaf(
@@ -159,7 +173,7 @@ def run_findmitoscaf(
         taxonomy=ctx.taxonomy, gene_code=ctx.gene_code,
         max_contig_len=ctx.cfg.annotate.max_contig_length,
         basedir=wd.stage_dir("findmitoscaf"), prefix=ctx.cfg.run.workname,
-        device=ctx.device,
+        device=ctx.device, mesh=ctx.mesh,
     )
     name = f"{ctx.cfg.run.workname}.picked.fa"
     out = wd.stage_file("findmitoscaf", name)
@@ -187,7 +201,7 @@ def run_annotate(ctx: PipelineContext, picked_path: str):
     res = annotate(
         ctx.cfg.annotate, records, ctx.profiles, ctx.cfg.annotate.clade,
         gene_code=ctx.gene_code, basedir=basedir, prefix=ctx.cfg.run.workname,
-        device=ctx.device,
+        device=ctx.device, mesh=ctx.mesh,
     )
     for name in ("locs.json", f"{ctx.cfg.run.workname}.annotated.cds.fa",
                  f"{ctx.cfg.run.workname}.annotated.rna.fa"):
@@ -302,9 +316,9 @@ def run_bim(ctx: PipelineContext, fastq1: str, fastq2: Optional[str] = None) -> 
                 )
                 for p1, p2 in pair_iter:
                     m1 = mapper.map_batch(index, p1.seqs[: p1.count],
-                                          p1.lengths[: p1.count])
+                                          p1.lengths[: p1.count], mesh=ctx.mesh)
                     m2 = mapper.map_batch(index, p2.seqs[: p2.count],
-                                          p2.lengths[: p2.count])
+                                          p2.lengths[: p2.count], mesh=ctx.mesh)
                     keep = np.zeros(p1.capacity, bool)
                     keep[: p1.count] = (m1.contig >= 0) | (m2.contig >= 0)
                     n_out += w1.write_batch(p1, keep)
@@ -319,7 +333,7 @@ def run_bim(ctx: PipelineContext, fastq1: str, fastq2: Optional[str] = None) -> 
                 for b in fastq.read_batches(res.clean1, 8192, cfg.filter.max_read_len,
                                             keep_names=True):
                     m = mapper.map_batch(index, b.seqs[: b.count],
-                                         b.lengths[: b.count])
+                                         b.lengths[: b.count], mesh=ctx.mesh)
                     keep = np.zeros(b.capacity, bool)
                     keep[: b.count] = m.contig >= 0
                     n_out += w1.write_batch(b, keep)
@@ -340,7 +354,8 @@ def run_bim(ctx: PipelineContext, fastq1: str, fastq2: Optional[str] = None) -> 
         try:
             assemble(cfg.assemble, b1, b2, out,
                      max_read_len=cfg.filter.max_read_len,
-                     spill_dir=wd.stage_dir("assemble"), device=ctx.device)
+                     spill_dir=wd.stage_dir("assemble"), device=ctx.device,
+                     mesh=ctx.mesh)
         finally:
             cfg.assemble.disable_scaffolding = old_noscaf
         if i > cfg.bim.iteration_ignore:

@@ -4,8 +4,9 @@ annotated CDS/RNA FASTAs.
 Port of mitoflex_tpu/stages/annotate.py, itself a re-implementation of the
 original pipeline's annotation stage (annotation/annotation.py:56-273, call
 stack SURVEY.md §3D). Every search runs on the run's ``device`` (``None`` is
-the card, see device.resolve_device); the sharded genewise branch of the
-reference waits for the multi-device paths. ``AnnotateResult.walls`` holds
+the card, see device.resolve_device); with a ``mesh`` (parallel/mesh.py)
+the translated search, genewise and the profile-HMM rescue shard over it.
+``AnnotateResult.walls`` holds
 the seconds spent in the translated search, genewise, the tRNA search and
 the rRNA search.
 
@@ -49,6 +50,7 @@ from ..models.profiles import ProfileSet
 from ..models.proteindb import ProteinRecord, parse_protein_id
 from ..ops import genewise as genewise_ops
 from ..ops.overlap import check_circular
+from ..parallel import mesh as mesh_mod
 from ..utils.helper import timed
 from ..utils.logger import logger
 
@@ -88,9 +90,11 @@ def _genewise_refine(
     db: Dict[str, ProteinRecord],
     table_id: int,
     device=None,
+    mesh=None,
 ) -> pd.DataFrame:
     """Batched genewise over every washed hit (reference runs wise2
-    serially per hit, annotation_tookit.py:264-311)."""
+    serially per hit, annotation_tookit.py:264-311); the hits shard over a
+    mesh of more than one shard (parallel.mesh.genewise_align_sharded)."""
     rows = list(washed.itertuples())
     if not rows:
         return washed
@@ -121,11 +125,14 @@ def _genewise_refine(
         ta[i, : len(t)] = t
         ql[i], tl[i] = len(q), len(t)
     aa = genewise_ops.translate_windows(ta, table_id)
-    dev = resolve_device(device)
-    hits = genewise_ops.genewise_align(
-        to_device(qa, dev), to_device(ql, dev), to_device(aa, dev),
-        to_device(tl, dev), codon.blosum62(),
-    )
+    if mesh is not None and mesh.size > 1:
+        hits = mesh_mod.genewise_align_sharded(mesh, qa, ql, aa, tl, codon.blosum62())
+    else:
+        dev = resolve_device(device)
+        hits = genewise_ops.genewise_align(
+            to_device(qa, dev), to_device(ql, dev), to_device(aa, dev),
+            to_device(tl, dev), codon.blosum62(),
+        )
     qf, qt = host(hits.q_from), host(hits.q_to)
     tf, tt = host(hits.t_from), host(hits.t_to)
     nsh = host(hits.n_shift)
@@ -228,6 +235,7 @@ def annotate(
     basedir: Optional[str] = None,
     prefix: str = "mitoflex",
     device=None,
+    mesh=None,
 ) -> AnnotateResult:
     dev = resolve_device(device)
     walls = {"tblastn": 0.0, "genewise": 0.0, "trna": 0.0, "rrna": 0.0}
@@ -245,7 +253,7 @@ def annotate(
     # the reference's annotate entry passes score=5 into blast_to_csv
     # (annotation.py:56-58,84), laxer than findmitoscaf's default of 25
     t0 = time.perf_counter()
-    frame = blast_models.tblastn(db_records, records, table_id, device=dev)
+    frame = blast_models.tblastn(db_records, records, table_id, device=dev, mesh=mesh)
     walls["tblastn"] += time.perf_counter() - t0
     frame = blast_models.blast_filter(frame, cfg.min_identity, 5.0, cfg.qcover_ratio)
     if frame.empty:
@@ -260,13 +268,14 @@ def annotate(
             logger.info("annotate: genome reversed; re-running the translated search")
             genome = {r.id: r for r in records}
             t0 = time.perf_counter()
-            frame = blast_models.tblastn(db_records, records, table_id, device=dev)
+            frame = blast_models.tblastn(db_records, records, table_id, device=dev,
+                                         mesh=mesh)
             walls["tblastn"] += time.perf_counter() - t0
             frame = blast_models.blast_filter(frame, cfg.min_identity, 5.0, cfg.qcover_ratio)
             washed = blast_models.wash_blast_results(frame, cfg.overlap_ratio)
 
     t0 = time.perf_counter()
-    wise_frame = _genewise_refine(washed, genome, db, table_id, device=dev)
+    wise_frame = _genewise_refine(washed, genome, db, table_id, device=dev, mesh=mesh)
     walls["genewise"] = time.perf_counter() - t0
     wise_frame = blast_models.wash_blast_results(wise_frame, cfg.overlap_ratio, mut_plus=False)
 
@@ -298,7 +307,7 @@ def annotate(
         from ..models import nhmmer
 
         hmms = [m for m in profiles.cds_hmms(clade) if m.name in cds_notfound]
-        hf = nhmmer.nhmmer_search(records, hmms, device=dev,
+        hf = nhmmer.nhmmer_search(records, hmms, device=dev, mesh=mesh,
                                   e_threshold=cfg.hmmer_e,
                                   score_threshold=cfg.hmmer_score)
         hmmer_frame = hf if not hf.empty else None

@@ -1,18 +1,23 @@
 """Assemble stage: clean reads -> contig FASTA through a multi-k de Bruijn
 loop.
 
-Port of mitoflex_tpu/stages/assemble.py (single device). Per k: chunked
-k-mer counting into a device-resident LSM (``KmerCounter``: per-chunk
-scattered runs merged by the CUDA merge kernel on a card), the solid gate,
-the graph + unitig pass, the graph-cleaning fixpoint (the host
-numpy ``stages/graph_clean``), local extension of contig ends through the
-seed-vote mapper, and the inter-iteration depth filter with contig
-re-injection at the next k. The run's ``device`` is passed down explicitly;
-on the CPU the host formulations run (device.uses_host_mirrors).
+Port of mitoflex_tpu/stages/assemble.py. Per k: chunked k-mer counting
+into a device-resident LSM (``KmerCounter``: per-chunk scattered runs merged
+by the CUDA merge kernel on a card), the solid gate, the graph + unitig
+pass, the graph-cleaning fixpoint (the host numpy ``stages/graph_clean``),
+local extension of contig ends through the seed-vote mapper, and the
+inter-iteration depth filter with contig re-injection at the next k. The
+run's ``device`` is passed down explicitly; on the CPU the host
+formulations run (device.uses_host_mirrors). With a ``mesh``
+(parallel/mesh.py) of more than one shard the counting
+(``ShardedKmerCounter``), the mercy pass and the read mapping shard over it
+in their tensor formulations, and so does the graph pass on cards
+(parallel/graph_mesh.py); the contigs are the single-device run's.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -31,6 +36,7 @@ from ..convert import host, to_device, u32_numpy
 from ..ops import dbg as dbg_ops
 from ..ops import kmer as kmer_ops
 from ..ops import mapper as mapper_ops
+from ..parallel import mesh as mesh_mod
 
 
 class EmptyGraph(Exception):
@@ -137,13 +143,24 @@ class KmerCounter:
                 return
             a = self._dev_levels[level]
             self._dev_levels[level] = None
-            if a[1].shape[0] + run[1].shape[0] > self.max_device_rows:
+            if self._run_rows(a) + self._run_rows(run) > self.max_device_rows:
                 # spill both to the host-side counter
-                self._push(kmer_ops.pull_scattered(*a))
-                self._push(kmer_ops.pull_scattered(*run))
+                self._push(self._pull(a))
+                self._push(self._pull(run))
                 return
-            run = kmer_ops.merge_scattered(a, run)
+            run = self._merge_dev(a, run)
             level += 1
+
+    # the device run's hooks, which ShardedKmerCounter replaces
+    @staticmethod
+    def _run_rows(run) -> int:
+        return run[1].shape[0]
+
+    def _merge_dev(self, a, b):
+        return kmer_ops.merge_scattered(a, b)
+
+    def _pull(self, run) -> Tuple[np.ndarray, np.ndarray]:
+        return kmer_ops.pull_scattered(*run)
 
     def add_chunk(self, seqs: np.ndarray, lengths: np.ndarray,
                   weights: Optional[np.ndarray] = None) -> None:
@@ -181,10 +198,10 @@ class KmerCounter:
         for run in self._dev_levels:
             if run is None:
                 continue
-            dev = run if dev is None else kmer_ops.merge_scattered(dev, run)
+            dev = run if dev is None else self._merge_dev(dev, run)
         runs = []
         if dev is not None:
-            keys, counts = kmer_ops.pull_scattered(*dev)
+            keys, counts = self._pull(dev)
             if len(keys):
                 runs.append((keys, counts))
         runs.extend(r for r in self._levels if r is not None)
@@ -264,6 +281,61 @@ class KmerCounter:
         return np.concatenate(ks), np.concatenate(cs)
 
 
+class ShardedKmerCounter(KmerCounter):
+    """KmerCounter over a ``parallel.mesh.DeviceMesh``: each shard counts
+    and LSM-merges its own rows of every chunk on its device
+    (count_chunk_scattered_sharded, the sort kernel K4 on a card for
+    two-word keys; merge_scattered_sharded, the merge kernel K2; no
+    communication a chunk). A run on the device is one scattered run a
+    shard, and its size against ``max_device_rows`` is the shards' rows
+    summed, as the reference counts its sharded arrays. Extraction
+    range-partitions the shards' runs with one all_to_all
+    (partition_scattered_sharded), so shard j ends with the exact global
+    table of key range j, and joins the shards' tables on the host. The
+    host LSM, the disk spill, ``merged_iter`` and ``solid`` are inherited;
+    tables equal the single-device counter's byte for byte
+    (tests/test_torch_mesh_stages.py). Weighted chunks take the inherited
+    exact path on the mesh's first device.
+
+    The shards take the tensor formulations on every device type, as the
+    reference's ``shard_map`` bodies are device code on its virtual CPU
+    devices."""
+
+    def __init__(self, mesh, k: int, canonical: bool = True, **kw):
+        super().__init__(k, canonical=canonical, device=mesh.primary, **kw)
+        self.mesh = mesh
+
+    def add_chunk(self, seqs: np.ndarray, lengths: np.ndarray,
+                  weights: Optional[np.ndarray] = None) -> None:
+        if weights is not None:
+            super().add_chunk(seqs, lengths, weights)
+            return
+        if seqs.shape[1] < self.k:
+            return
+        self._cache_valid = False
+        self._push_device(mesh_mod.count_chunk_scattered_sharded(
+            self.mesh, seqs, lengths, self.k, self.canonical))
+
+    @staticmethod
+    def _run_rows(run) -> int:
+        return sum(counts.shape[0] for _, counts in run)
+
+    def _merge_dev(self, a, b):
+        return mesh_mod.merge_scattered_sharded(self.mesh, a, b)
+
+    def _extract(self, run) -> Tuple[np.ndarray, np.ndarray]:
+        """all_to_all partition + per-shard merge; the shards' tables in
+        order are the global ascending table."""
+        parts = mesh_mod.partition_scattered_sharded(self.mesh, run,
+                                                     canonical=self.canonical)
+        keys = np.concatenate([u32_numpy(w).T for w, _, _ in parts])
+        counts = np.concatenate([host(c) for _, c, _ in parts]).astype(np.uint64)
+        return np.ascontiguousarray(keys), counts
+
+    def _pull(self, run) -> Tuple[np.ndarray, np.ndarray]:
+        return self._extract(run)
+
+
 def _symmetrize_max(keys: np.ndarray, counts: np.ndarray, kp1: int):
     """Overlay a forward-counted table onto both strands: merge with its
     reverse-complement twin using max (depth overlay semantics)."""
@@ -277,7 +349,7 @@ def _symmetrize_max(keys: np.ndarray, counts: np.ndarray, kp1: int):
 
 def count_edges(
     read_source, k: int, min_multi: int, extra_contigs: Sequence[Contig] = (),
-    spill_dir: Optional[str] = None, device=None,
+    spill_dir: Optional[str] = None, device=None, mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Count SOLID (k+1)-mers over a read source (callable yielding
     (seqs, lengths) numpy chunks) plus re-injected contigs.
@@ -285,9 +357,13 @@ def count_edges(
     Reads are counted canonically and gated per merged piece
     (palindrome-aware), then expanded to both strands. Contig k-mers are
     overlaid with max(), not summed — the reads they came from are still in
-    the stream — and the overlay is strand-symmetrized."""
+    the stream — and the overlay is strand-symmetrized. With a mesh of more
+    than one shard the reads are counted by a ShardedKmerCounter."""
     kp1 = k + 1
-    counter = KmerCounter(kp1, canonical=True, spill_dir=spill_dir, device=device)
+    if mesh is not None and mesh.size > 1:
+        counter = ShardedKmerCounter(mesh, kp1, spill_dir=spill_dir)
+    else:
+        counter = KmerCounter(kp1, canonical=True, spill_dir=spill_dir, device=device)
     for seqs, lengths in read_source():
         counter.add_chunk(seqs, lengths)
     sk, sc = [], []
@@ -345,39 +421,60 @@ def _contigs_to_chunks(contigs: Sequence[Contig], kp1: int, row_len: int = 4096)
     return out
 
 
+def _mercy_candidates(table: torch.Tensor, ds: torch.Tensor, dl: torch.Tensor,
+                      kp1: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Where a read chunk's sub-threshold (k+1)-mers lie between two solid
+    ones on the same read: ``(words [W, B, P], mask [B, P])`` a strand."""
+    W = table.shape[0]
+    out = []
+    for ra in (False, True):
+        s = kmer_ops.revcomp_codes_padfront(ds) if ra else ds
+        words, valid = kmer_ops.extract_kmers(s, dl, kp1, right_aligned=ra)
+        member = kmer_ops.multiword_member_sorted(
+            table, words.reshape(W, -1)
+        ).reshape(valid.shape) & valid
+        col = torch.arange(member.shape[1], device=ds.device)
+        left = torch.cummax(torch.where(member, col, -1), dim=1).values >= 0
+        right = torch.cummax(torch.where(member.flip(1), col, -1),
+                             dim=1).values.flip(1) >= 0
+        out.append((words, valid & ~member & left & right))
+    return out
+
+
 def add_mercy_edges(
     read_source, keys: np.ndarray, counts: np.ndarray, k: int, device=None,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Read-path mercy rescue (megahit mercy, only at kmin): a sub-threshold
     (k+1)-mer is kept when some READ carries it between two solid (k+1)-mers.
     Two passes: the reads re-stream against the solid table and only the
     mercy candidates accumulate; a rescued k-mer's count is its number of
-    flanked occurrences."""
+    flanked occurrences. With a mesh of more than one shard each chunk's
+    rows shard over it, the solid table replicated (the candidates are a
+    multiset, so the result is the single-device one)."""
     if len(keys) == 0:
         return keys, counts
-    dev = device_mod.resolve_device(device)
     W = keys.shape[1]
-    table = to_device(np.ascontiguousarray(keys.T), dev)
-    mercy_runs: List[np.ndarray] = []
     kp1 = k + 1
+    if mesh is not None and mesh.size > 1:
+        tables = [to_device(np.ascontiguousarray(keys.T), dev) for dev in mesh.devices]
+
+        def candidates(seqs, lengths):
+            shards = mesh_mod.shard_batch(mesh, seqs, lengths)
+            return [c for t, (ds, dl) in zip(tables, shards)
+                    for c in _mercy_candidates(t, ds, dl, kp1)]
+    else:
+        dev = device_mod.resolve_device(device)
+        table = to_device(np.ascontiguousarray(keys.T), dev)
+
+        def candidates(seqs, lengths):
+            return _mercy_candidates(table, to_device(seqs, dev),
+                                     to_device(lengths, dev), kp1)
+    mercy_runs: List[np.ndarray] = []
     for seqs, lengths in read_source():
-        ds, dl = to_device(seqs, dev), to_device(lengths, dev)
-        for ra in (False, True):
-            s = kmer_ops.revcomp_codes_padfront(ds) if ra else ds
-            words, valid = kmer_ops.extract_kmers(s, dl, kp1, right_aligned=ra)
-            member = kmer_ops.multiword_member_sorted(
-                table, words.reshape(W, -1)
-            ).reshape(valid.shape) & valid
-            # between two solid k-mers on the same read
-            col = torch.arange(member.shape[1], device=dev)
-            left = torch.cummax(torch.where(member, col, -1), dim=1).values >= 0
-            right = torch.cummax(torch.where(member.flip(1), col, -1),
-                                 dim=1).values.flip(1) >= 0
-            mercy_mask = valid & ~member & left & right
-            if bool(mercy_mask.any()):
-                mercy_runs.append(np.ascontiguousarray(
-                    u32_numpy(words[:, mercy_mask]).T
-                ))
+        for words, mask in candidates(seqs, lengths):
+            if bool(mask.any()):
+                mercy_runs.append(np.ascontiguousarray(u32_numpy(words[:, mask]).T))
     if not mercy_runs:
         return keys, counts
     cand = np.concatenate(mercy_runs)
@@ -393,10 +490,18 @@ def add_mercy_edges(
 
 
 def _run_graph_pass(keys: np.ndarray, counts: np.ndarray, k: int,
-                    device=None) -> dbg_ops.GraphPass:
+                    device=None, mesh=None) -> dbg_ops.GraphPass:
     E = len(keys)
     if E == 0:
         raise EmptyGraph(f"no solid edges at k={k}")
+    if mesh is not None and mesh.size > 1 and (
+            mesh.primary.type == "cuda" or os.environ.get("MITOFLEX_MESH_GRAPH") == "1"):
+        # the sharded pass (per-card memory O(E / n)) on cards; on the CPU,
+        # where its shards share one host, only when forced, as in the
+        # reference
+        from ..parallel import graph_mesh
+
+        return graph_mesh.graph_unitig_pass_mesh(mesh, keys, counts, k)
     dev = device_mod.resolve_device(device)
     if keys.shape[1] <= 2 and device_mod.uses_host_mirrors(dev):
         return dbg_ops.graph_unitig_pass_host(keys, counts, k)
@@ -417,6 +522,7 @@ def assemble_k(
     min_standalone: int = 200,
     max_clean_rounds: int = 8,
     device=None,
+    mesh=None,
 ) -> Tuple[List[Contig], List[Contig]]:
     """One k iteration: graph -> unitigs -> cleaning fixpoint -> contigs.
     Returns (contigs, popped_bubbles); the latter is non-empty only in
@@ -424,7 +530,7 @@ def assemble_k(
     bubbles: List[Contig] = []
     stale = False  # last pass's unitigs predate a keys/counts filter
     for _ in range(max_clean_rounds):
-        gp = _run_graph_pass(keys, counts, k, device=device)
+        gp = _run_graph_pass(keys, counts, k, device=device, mesh=mesh)
         n = int(gp.n_nodes)
         if n == 0:
             raise EmptyGraph(f"graph emptied at k={k}")
@@ -453,7 +559,7 @@ def assemble_k(
     if stale:
         # the fixpoint did not converge: regenerate unitigs from the
         # filtered edge set so killed branches cannot leak into contigs
-        gp = _run_graph_pass(keys, counts, k, device=device)
+        gp = _run_graph_pass(keys, counts, k, device=device, mesh=mesh)
         if int(gp.n_nodes) == 0:
             raise EmptyGraph(f"graph emptied at k={k}")
         uset = dbg_ops.unitig_set_from_pass(gp, k)
@@ -497,6 +603,7 @@ def _extend_ends(
     max_ext: int,
     collect_candidates: bool = False,
     device=None,
+    mesh=None,
 ) -> Tuple[List[Contig], bool,
            Optional[List[Tuple[np.ndarray, np.ndarray]]]]:
     """One extension pass over BOTH contig ends from a single mapping sweep:
@@ -533,7 +640,7 @@ def _extend_ends(
         [] if collect_candidates else None
     )
     for seqs, lengths in read_source():
-        m = mapper_ops.map_batch(index, seqs, lengths, min_votes=2)
+        m = mapper_ops.map_batch(index, seqs, lengths, min_votes=2, mesh=mesh)
         mapped = m.contig >= 0
         ridx = np.maximum(m.contig, 0)
         ci_all = rec_ci_a[ridx]
@@ -589,6 +696,7 @@ def local_extend(
     max_ext_per_round: int = 60,
     read_stride: int = 1,
     device=None,
+    mesh=None,
 ) -> List[Contig]:
     """Local assembly of contig ends (megahit `local` analog): both ends
     grow from one mapping sweep per round while a clear consensus with
@@ -616,6 +724,7 @@ def local_extend(
         contigs, changed, cand = _extend_ends(
             contigs, src, min_support, consensus_frac,
             max_ext_per_round, collect_candidates=collect, device=device,
+            mesh=mesh,
         )
         if cand is not None:
             if sum(s.nbytes for s, _ in cand) <= CAND_BUDGET_BYTES:
@@ -651,13 +760,18 @@ def assemble(
     host_shard: Optional[Tuple[int, int]] = None,
     spill_dir: Optional[str] = None,
     device=None,
+    mesh=None,
 ) -> str:
     """Full multi-k assembly from clean FASTQ to contig FASTA on ``device``.
 
     ``host_shard=(process_id, n_processes)`` restricts this process's read
     ingestion to its record-aligned byte range of each input file; pass
     (0, 1) when the inputs are already per-process files. ``spill_dir``:
-    directory for the disk-bucketed host LSM."""
+    directory for the disk-bucketed host LSM. ``mesh``: a
+    ``parallel.mesh.DeviceMesh`` over this process's devices; with more
+    than one shard the k-mer counting (ShardedKmerCounter), the mercy pass,
+    the read mapping and, on cards, the graph pass run sharded, and the
+    contig FASTA is byte-identical to the single-device run's."""
     if read_chunk is None:
         read_chunk = getattr(cfg, "read_chunk", 16384)
     if host_shard is None:
@@ -718,7 +832,8 @@ def assemble(
 
             def source():
                 for seqs, lengths in read_source():
-                    m = mapper_ops.map_batch(index, seqs, lengths, min_votes=2)
+                    m = mapper_ops.map_batch(index, seqs, lengths, min_votes=2,
+                                             mesh=mesh)
                     keep = m.contig >= 0
                     if keep.any():
                         yield seqs, np.where(keep, lengths, 0).astype(np.int32)
@@ -728,10 +843,11 @@ def assemble(
             mercy_active = (not cfg.no_mercy) and i == 0
             keys, counts = count_edges(
                 source, k, cfg.min_multi, extra_contigs=contigs + bubbles,
-                spill_dir=spill_dir, device=device,
+                spill_dir=spill_dir, device=device, mesh=mesh,
             )
             if mercy_active:
-                keys, counts = add_mercy_edges(source, keys, counts, k, device=device)
+                keys, counts = add_mercy_edges(source, keys, counts, k, device=device,
+                                               mesh=mesh)
             logger.info(f"assemble: k={k}: {len(keys)} solid (k+1)-mers")
             if i == 0 and seen_max[0]:
                 kept = [kk for kk in klist if kk < max(seen_max[0], klist[0] + 1)]
@@ -752,14 +868,14 @@ def assemble(
             )
             contigs, bubbles = assemble_k(
                 keys, counts, k, clean, min_standalone=cfg.min_length,
-                device=device,
+                device=device, mesh=mesh,
             )
             if not cfg.disable_local and any(not c.circular for c in contigs):
                 linear = [c for c in contigs if not c.circular]
                 circular = [c for c in contigs if c.circular]
                 linear = local_extend(linear, source,
                                       read_stride=cfg.local_read_stride,
-                                      device=device)
+                                      device=device, mesh=mesh)
                 contigs = circular + linear
         except EmptyGraph as e:
             logger.warn(f"assemble: {e}; stopping multi-k loop at k={k}")

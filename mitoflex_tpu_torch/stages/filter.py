@@ -5,7 +5,8 @@ quality-percentage rules, the optional keep-region trim, optional PE dedup
 (through the native hash set, native/dedup_native.py) and the
 Gbp truncation budget. The host streams fixed-shape batches; the per-base
 work runs on the run's device (ops/filter.py: the CUDA filter kernel on a
-card). Multi-device data parallelism is not ported yet (ROADMAP).
+card), or data-parallel over a device mesh (parallel/mesh.py), whose shards
+each filter their rows of every batch.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from ..utils.logger import logger
 from ..convert import host, to_device, u32_numpy
 from ..device import resolve_device
 from ..ops import filter as filter_ops
+from ..parallel import mesh as mesh_mod
 
 
 @dataclass
@@ -102,8 +104,13 @@ def filter_reads(
     out2: Optional[str] = None,
     host_shard: Optional[Tuple[int, int]] = None,
     device=None,
+    mesh=None,
 ) -> FilterResult:
-    """Run the filter stage on ``device``. PE iff fastq2 is given.
+    """Run the filter stage on ``device``. PE iff fastq2 is given. With
+    ``mesh`` the per-batch kernel runs data-parallel across the mesh's
+    devices (parallel.mesh.filter_reads_sharded); batches stay host-fed
+    either way, and the dedup set and the trimming budget stay global, so
+    the output is the single-device run's.
 
     ``host_shard=(process_id, n_processes)`` makes this process ingest only
     its 1/n slice of the input (record-aligned byte ranges for plain FASTQ,
@@ -121,13 +128,21 @@ def filter_reads(
     reads_in = reads_kept = bases_in = bases_kept = dups = used = 0
     dev = resolve_device(device)
 
-    def run_kernel(seqs, quals, lengths, cutoff_lengths):
-        return filter_ops.filter_reads(
-            to_device(seqs, dev), to_device(quals, dev),
-            to_device(lengths.astype(np.int32), dev),
-            cfg.ns_valve, cfg.quality_valve, cfg.percentage_valve,
-            to_device(cutoff_lengths.astype(np.int32), dev),
-        )
+    if mesh is not None:
+        def run_kernel(seqs, quals, lengths, cutoff_lengths):
+            return mesh_mod.filter_reads_sharded(
+                mesh, seqs, quals, lengths.astype(np.int32),
+                cfg.ns_valve, cfg.quality_valve, cfg.percentage_valve,
+                cutoff_lengths.astype(np.int32),
+            )
+    else:
+        def run_kernel(seqs, quals, lengths, cutoff_lengths):
+            return filter_ops.filter_reads(
+                to_device(seqs, dev), to_device(quals, dev),
+                to_device(lengths.astype(np.int32), dev),
+                cfg.ns_valve, cfg.quality_valve, cfg.percentage_valve,
+                to_device(cutoff_lengths.astype(np.int32), dev),
+            )
 
     def _shard_iter(it):
         """Batch striding for unseekable (gz) input: process p keeps

@@ -4,7 +4,8 @@ Port of mitoflex_tpu/stages/findmitoscaf.py. The selection logic is the
 reference's host code (copied: the reference module imports the
 jax-importing search modules); the searches run on the caller's ``device``
 through the port's nhmmer (ops/phmm.py Viterbi) and blast (ops/sw.py
-Smith-Waterman) modules:
+Smith-Waterman) modules, and with a ``mesh`` the profile scan and the
+taxonomy filter's tblastn shard their windows over it:
 
 1. optional global merge of overlapping contigs (merge_method == 0);
 2. profile-HMM scan of all contigs against the clade's PCG models;
@@ -66,10 +67,11 @@ def taxonomy_filter(
     gene_code: int,
     relaxing: int = 0,
     device=None,
+    mesh=None,
 ) -> pd.DataFrame:
     """reference filter_taxanomy (findmitoscaf.py:392-436)."""
     db = profiles.merged_protein_db()
-    frame = blast_models.tblastn(db, list(contigs), gene_code, device=device)
+    frame = blast_models.tblastn(db, list(contigs), gene_code, device=device, mesh=mesh)
     frame = blast_models.blast_filter(frame)
     if frame.empty:
         logger.warn("taxonomy_filter: no tblastn hits; keeping nothing")
@@ -236,6 +238,7 @@ def findmitoscaf(
     basedir: Optional[str] = None,
     prefix: str = "mitoflex",
     device=None,
+    mesh=None,
     _recurse: bool = False,
 ) -> FindMitoResult:
     t_start = time.perf_counter()
@@ -256,7 +259,8 @@ def findmitoscaf(
 
     hmms = profiles.cds_hmms(clade)
     hmm_frame = part("nhmmer", nhmmer.nhmmer_search, contigs, hmms,
-                     e_threshold=1e-3, score_threshold=5.0, device=device)
+                     e_threshold=1e-3, score_threshold=5.0, device=device,
+                     mesh=mesh)
     if hmm_frame.empty:
         raise RuntimeError(
             "The result from nhmmer is empty! Please check if the data is "
@@ -272,7 +276,7 @@ def findmitoscaf(
             hmm_frame = part(
                 "blast", taxonomy_filter, hmm_contigs, hmm_frame, profiles,
                 taxonomy, cfg.required_taxa, gene_code, cfg.taxa_tolerance,
-                device=device,
+                device=device, mesh=mesh,
             )
         except FileNotFoundError:
             logger.warn("findmitoscaf: no protein DB for taxa filter; skipping")
@@ -335,7 +339,7 @@ def findmitoscaf(
             sub_cfg = SearchConfig(**{**cfg.__dict__, "merge_method": 2, "split_two": False})
             sub = findmitoscaf(
                 sub_cfg, picked, profiles, clade, taxonomy, gene_code,
-                max_contig_len, device=device, _recurse=True,
+                max_contig_len, device=device, mesh=mesh, _recurse=True,
             )
             for name in walls:
                 walls[name] += sub.walls[name]

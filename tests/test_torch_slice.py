@@ -282,7 +282,8 @@ def test_slice_through_visualize_matches_jax(fms_inputs, jax_picked, monkeypatch
 
 def test_port_runs_without_jax(tmp_path):
     """In a fresh interpreter the port filters a batch, merges two runs,
-    imports every ported module, runs its CLI's filter, findmitoscaf,
+    imports every ported module (the device mesh's included), runs its
+    CLI's filter, findmitoscaf,
     annotate and ``all`` (the five stages, on paired reads), then
     ``check_circular`` and ``ncbi --help``; no subcommand is left that exits
     with 3, and neither jax nor any module of the JAX package
@@ -313,6 +314,7 @@ import numpy as np, torch
 from mitoflex_tpu_torch.ops import filter as F, kmer as K
 from mitoflex_tpu_torch.cli import main
 from mitoflex_tpu_torch import check_circular, ncbi
+from mitoflex_tpu_torch.parallel import graph_mesh, mesh
 seqs = torch.from_numpy(np.random.default_rng(0).integers(0, 5, (64, 32)).astype(np.int8))
 quals = torch.full((64, 32), 60, dtype=torch.int8)
 lens = torch.full((64,), 32, dtype=torch.int32)
@@ -355,6 +357,7 @@ print(json.dumps({{"jax": "jax" in sys.modules, "jax_pkg": jax_pkg, "rc": rc,
     locs = json.loads((tmp_path / "a" / "a.result" / "locs.json").read_text())
     assert set(profile_fixture.GENES) <= set(locs)
     assert "stages.visualize" in r.stdout and "check_circular" in r.stdout
+    assert "parallel.mesh" in r.stdout and "parallel.graph_mesh" in r.stdout
     # `all` ran without --keep-temp: the results stay, the stage files go
     e2e = tmp_path / "e2e"
     assert sorted(os.listdir(e2e / "e2e.result")) == [
