@@ -44,8 +44,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    rRNAs whose covariance models, CLEN 72, 950 and 1100, the CM fixture
    writes) at 400x plus two 8 kb nuclear decoys at 12x, 150 bp pairs,
    insert 300, 1% errors, from --seed, through the port's
-   PipelineContext(device="cuda") and ``run_all``. All four kernels' launch
-   counters are zeroed just before and read just after; each must be > 0.
+   PipelineContext(device="cuda") and ``run_all``. All six kernels' launch
+   counters (K1 to K4 and the two Viterbi passes) are zeroed just before and
+   read just after; each must be > 0, and the plain Viterbi loops must see
+   no card tensor. Every Viterbi call's inputs are kept for phase 13, and
+   every ``nhmmer_search`` call is timed by the stage that made it: under
+   annotate this splits the tRNA and rRNA walls into the p7 filter scan and
+   the CYK refinement.
    The summary must hold ``picked``, ``locs``, ``circular`` (true) and
    ``plots``; ``depth_mean`` of ``mt1`` in ``tracks.json`` must lie between
    0.7 and 1.05 times the planted 400x, ``depth.txt`` must have one row per
@@ -111,15 +116,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    function alone on 4 shards against its single-device call on seeded
    inputs (filter, partitioned counting with keys whose first word is at
    least 2**31 and each shard inside its key range, mapper, SW, genewise,
-   both Viterbi passes: coordinates equal, scores within 1e-4); and
+   both Viterbi passes: coordinates equal, scores within 1e-4; both Viterbi
+   kernels launched, and on the small set's sharded findmitoscaf and
+   annotate too); and
    ``init_distributed`` with NCCL at world size 1 through a file://
    rendezvous, one all_reduce, torn down. Mesh walls are printed beside
    the single-device walls of this run.
+13. The two Viterbi passes of mitoflex_tpu_torch/csrc/viterbi.cu (run
+   right after phase 7) against their plain loops: on every seeded case of
+   ``kernel_cases.viterbi_cases`` at delete bands 16, 10 and 0 (scores
+   bit-equal, every coordinate exact), at the golden run's largest call of
+   each pass, and at the shapes of the golden run's largest searches (22
+   tRNA-size models at Lp 128, the rRNA sizes at Lp 1024 and 2048, 512
+   windows of 4096; the envelope scan at Lp 2048 on 64 windows of 4096),
+   each timed beside its plain loop and its bound: the float32 operations
+   that the call's cells need at 67 TFLOP/s, or its bytes once at 3.35
+   TB/s where that is larger; then findmitoscaf's ``nhmmer_search`` call of
+   phase 6 again, alone, with its ``cudaLaunchKernel`` calls counted under
+   torch.profiler.
 
 Kernel times are medians of CUDA-event-timed repeats after a warm-up; one
 repeat is one call of the kernel's wrapper between two events, so it holds
-the wrapper's host time before the launch too. Each kernel's bound is the
-bytes of its inputs and outputs, moved once at the H100's 3.35 TB/s. The
+the wrapper's host time before the launch too. K1 to K4's bound is the
+bytes of their inputs and outputs, moved once at the H100's 3.35 TB/s; the
+Viterbi kernels' is their operations (phase 13). The
 last two lines are one JSON object of per-kernel results and then
 {"ok": true, "device": {...}}; the card's name and power limit (from
 nvidia-smi) are printed before them. Without a CUDA device the script exits
@@ -671,13 +691,24 @@ def _slice_config(tmp: str, workname: str, golden: bool, fake):
     return cfg
 
 
+VITERBI_KERNELS = ("viterbi_scores_multi", "viterbi_scan")
+
+
 def _launch_counters():
     from mitoflex_tpu_torch.ops import filter as F
-    from mitoflex_tpu_torch.ops import psort
+    from mitoflex_tpu_torch.ops import phmm, psort
 
     return {"filter_reads": F.filter_reads, "merge_sorted_runs": psort.merge_sorted_runs,
             "merge_sorted_runs_onepass": psort.merge_sorted_runs_onepass,
-            "sort_words2": psort.sort_words2}
+            "sort_words2": psort.sort_words2,
+            "viterbi_scores_multi": phmm.viterbi_scores_multi,
+            "viterbi_scan": phmm.viterbi_scan}
+
+
+def _sort_launches(launches: dict) -> dict:
+    """K1 to K4's counts: the paths without a profile search (filter and
+    assemble) launch no Viterbi kernel."""
+    return {k: v for k, v in launches.items() if k not in VITERBI_KERNELS}
 
 
 def _have_matplotlib() -> bool:
@@ -727,7 +758,8 @@ def run_golden_slice(seed: int, tmp: str):
     files and filter and assemble walls, for phase 12."""
     from mitoflex_tpu_torch import pipeline
     from mitoflex_tpu_torch.io import fasta
-    from mitoflex_tpu_torch.ops import dbg, mapper, psort
+    from mitoflex_tpu_torch.models import nhmmer
+    from mitoflex_tpu_torch.ops import dbg, mapper, phmm, psort
     from mitoflex_tpu_torch.stages import visualize as vis
     from mitoflex_tpu_torch.testing import profile_fixture, synth
 
@@ -757,6 +789,45 @@ def run_golden_slice(seed: int, tmp: str):
         merges.append(tuple(x.clone() for x in (a_keys, a_vals, b_keys, b_vals)))
         return merge_runs(a_keys, a_vals, b_keys, b_vals)
 
+    # every Viterbi call's inputs, for phase 13; the plain loops must see no
+    # card tensor
+    real_viterbi = {n: getattr(phmm, n) for n in VITERBI_KERNELS}
+    plain_names = ("viterbi_scores_multi_plain", "viterbi_scan_plain")
+    real_plain = {n: getattr(phmm, n) for n in plain_names}
+    viterbi_calls = {n: [] for n in VITERBI_KERNELS}
+    plain_on_card = []
+
+    def kept_viterbi(name):
+        def run(prof, *a, **k):
+            viterbi_calls[name].append((prof, *(x.clone() if isinstance(x, torch.Tensor)
+                                                else x for x in a), k))
+            return real_viterbi[name](prof, *a, **k)
+        return run
+
+    def watched_plain(name):
+        def run(*a, **k):
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in a):
+                plain_on_card.append(name)
+            return real_plain[name](*a, **k)
+        return run
+
+    # nhmmer_search's walls by the stage that called it, and each call under
+    # annotate with its models (the tRNA and rRNA searches' p7 filter scans)
+    real_nhmmer = nhmmer.nhmmer_search
+    nhmmer_s, annotate_nhmmer, current = {}, [], {"stage": None}
+    nhmmer_calls = []
+
+    def timed_nhmmer(contigs, profiles, *a, **k):
+        nhmmer_calls.append((current["stage"], contigs, profiles, a, k))
+        t0 = time.perf_counter()
+        out = real_nhmmer(contigs, profiles, *a, **k)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        nhmmer_s[current["stage"]] = nhmmer_s.get(current["stage"], 0.0) + dt
+        if current["stage"] == "run_annotate":
+            annotate_nhmmer.append((len(profiles), max(h.length for h in profiles), dt))
+        return out
+
     # each stage's wall (ending in a synchronise) and result, taken where
     # run_all calls the stage
     stages = ("run_filter", "run_assemble", "run_findmitoscaf", "run_annotate",
@@ -767,8 +838,10 @@ def run_golden_slice(seed: int, tmp: str):
     def timed_stage(name):
         def run(*a, **k):
             t0 = time.perf_counter()
+            current["stage"] = name
             stage_out[name] = real_stages[name](*a, **k)
             torch.cuda.synchronize()
+            current["stage"] = None
             stage_s[name] = time.perf_counter() - t0
             return stage_out[name]
         return run
@@ -792,11 +865,17 @@ def run_golden_slice(seed: int, tmp: str):
         cfg.visualize.disable_visualization = True
     # the wrapper counts on the module attribute of its own name, which is
     # the recording function while this run lasts
-    counters = {**_launch_counters(), "merge_sorted_runs": kept_merge}
+    recorders = {n: kept_viterbi(n) for n in VITERBI_KERNELS}
+    counters = {**_launch_counters(), "merge_sorted_runs": kept_merge, **recorders}
     ctx = pipeline.PipelineContext.create(cfg, device="cuda")
     dbg.graph_unitig_pass = kept_graph_pass
     psort.merge_sorted_runs = kept_merge
     mapper.coverage_of_reads = timed_coverage
+    nhmmer.nhmmer_search = timed_nhmmer
+    for n in VITERBI_KERNELS:
+        setattr(phmm, n, recorders[n])
+    for n in plain_names:
+        setattr(phmm, n, watched_plain(n))
     for name in stages:
         setattr(pipeline, name, timed_stage(name))
     try:
@@ -821,10 +900,26 @@ def run_golden_slice(seed: int, tmp: str):
         dbg.graph_unitig_pass = graph_pass
         psort.merge_sorted_runs = merge_runs
         mapper.coverage_of_reads = coverage_of_reads
+        nhmmer.nhmmer_search = real_nhmmer
+        for n, fn in {**real_viterbi, **real_plain}.items():
+            setattr(phmm, n, fn)
         for name in stages:
             setattr(pipeline, name, real_stages[name])
     filter_s, assemble_s, find_s, annotate_s, visualize_s = (stage_s[n] for n in stages)
     w = found.walls
+    aw = annotated.walls
+    trna_p7 = sum(dt for n, L, dt in annotate_nhmmer if L <= 200)
+    rrna_p7 = sum(dt for n, L, dt in annotate_nhmmer if L > 200)
+    _log(f"nhmmer_search walls by stage: "
+         + ", ".join(f"{k}: {v:.3f} s" for k, v in nhmmer_s.items())
+         + f"; under annotate {len(annotate_nhmmer)} calls (models, longest model, s): "
+         f"{[(n, L, round(dt, 4)) for n, L, dt in annotate_nhmmer]}: tRNA wall "
+         f"{aw['trna']:.3f} s = p7 filter scan {trna_p7:.3f} s + CYK refinement and the "
+         f"rest {aw['trna'] - trna_p7:.3f} s; rRNA wall {aw['rrna']:.3f} s = p7 filter "
+         f"scan {rrna_p7:.3f} s + banded CYK and the rest {aw['rrna'] - rrna_p7:.3f} s")
+    if plain_on_card:
+        raise AssertionError(f"golden all: the plain Viterbi loops ran on card tensors: "
+                             f"{sorted(set(plain_on_card))}")
     _log(f"all walls: run_all {all_s:.3f} s"
          + ("" if have_mpl else " (without visualize)")
          + f"; filter {filter_s:.3f} s ({res.reads_kept}/{res.reads_in} "
@@ -883,7 +978,8 @@ def run_golden_slice(seed: int, tmp: str):
     golden = {"fake": fake, "f1": f1, "f2": f2, "clean1": res.clean1, "clean2": res.clean2,
               "contigs": ctx.workdir.stage_file("assemble", "contigs.fa"),
               "assembled": stage_out["run_assemble"], "filter_s": filter_s,
-              "assemble_s": assemble_s}
+              "assemble_s": assemble_s, "viterbi_calls": viterbi_calls,
+              "nhmmer_calls": nhmmer_calls}
     return launches, passes, merges, golden
 
 
@@ -1236,7 +1332,7 @@ def run_bim_vs_cpu(tmp: str, fake, f1: str, f2: str, cpu_bim: _Command,
         torch.cuda.synchronize()
     bim_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    if device != "cpu" and min(launches.values()) <= 0:
+    if device != "cpu" and min(_sort_launches(launches).values()) <= 0:
         raise AssertionError(f"bim: a kernel never launched: {launches}")
     if cfg.assemble.disable_scaffolding or not picked.endswith("cli.picked.fa"):
         raise AssertionError(f"bim: returned {picked}, disable_scaffolding "
@@ -1459,6 +1555,145 @@ def check_cyk_vs_cpu(dev, tmp: str) -> None:
              f"{times[1] if times[1] else 'not counted in this run'}")
 
 
+# ------------------------------------------------------- Viterbi kernels
+F32_OPS_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores, 67 TFLOP/s
+# operations a cell (model column x window position), counted from
+# ops/phmm.py's plain versions: the scores pass 7 for M (3 adds, 3 max, the
+# emission), 4 for I, 2 for the closure's input, log2(W) max rounds, 1 for D
+# and 1 for the running best; the scan pass 16 for M (adds, compares and the
+# two payload selects a candidate), 7 for I, 2, 4 a closure round, 1 for D
+# and 5 for the per-column best
+VITERBI_OPS = {"viterbi_scores_multi": (15, 1), "viterbi_scan": (30, 4)}
+# the shapes of the golden run's largest searches:
+# (pass, models, model length, windows, window width)
+VITERBI_SHAPES = (("viterbi_scores_multi", 22, 72, 512, 4096),
+                  ("viterbi_scores_multi", 1, 950, 512, 4096),
+                  ("viterbi_scores_multi", 1, 1100, 512, 4096),
+                  ("viterbi_scan", 1, 1100, 64, 4096))
+
+
+def _viterbi_args(name, call):
+    """(profile, model lengths, windows, lengths, band) of a recorded call."""
+    if name == "viterbi_scan":
+        prof, seqs, lengths, model_len, *rest = call[:-1]
+        lens = [model_len]
+    else:
+        prof, lens, seqs, lengths, *rest = call[:-1]
+    band = rest[0] if rest else call[-1].get("delete_band", 16)
+    return prof, [int(x) for x in lens], seqs, lengths, band
+
+
+def _viterbi_bound(name, prof, lens, seqs, lengths, band) -> tuple:
+    """(bound ms, bound_by, cells): the larger of the operations this call's
+    data needs (the cells inside each model and each row's length) at the
+    float32 rate and its inputs and outputs once at the memory rate."""
+    from mitoflex_tpu_torch.ops import phmm
+
+    Lp, T = prof.msc.shape[-2], seqs.shape[1]
+    steps = int(lengths.to(torch.int64).clamp(0, T).sum())
+    cells = steps * sum(min(max(L, 0), Lp) for L in lens)
+    base, per_round = VITERBI_OPS[name]
+    W = phmm.closure_window(band, scores=name != "viterbi_scan")
+    rounds = max(W, 1).bit_length() - 1  # log2(W); the exact closure is not timed
+    ops = cells * (base + per_round * rounds)
+    out_bytes = (5 if name == "viterbi_scan" else len(lens)) * 4 * seqs.shape[0]
+    mem_ms = _bound_ms(*prof[:-1], seqs, lengths) + out_bytes / HBM_BYTES_PER_MS
+    op_ms = ops / F32_OPS_PER_MS
+    return max(op_ms, mem_ms), ("operations" if op_ms >= mem_ms else "bytes"), cells
+
+
+def _time_viterbi(name, prof, lens, seqs, lengths, band, repeats: int = 5) -> dict:
+    """The kernel (median of CUDA-event-timed wrapper calls) and the plain
+    loop (one call) on the same inputs: scores bit-equal, coordinates
+    exact, or AssertionError."""
+    from mitoflex_tpu_torch.ops import phmm
+
+    if name == "viterbi_scan":
+        def run(fn):
+            return fn(prof, seqs, lengths, lens[0], band)
+        kernel, plain = phmm.viterbi_scan, phmm.viterbi_scan_plain
+    else:
+        def run(fn):
+            return (fn(prof, lens, seqs, lengths, band),)
+        kernel, plain = phmm.viterbi_scores_multi, phmm.viterbi_scores_multi_plain
+    ms = _cuda_ms(lambda: run(kernel), repeats)
+    got = run(kernel)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = run(plain)
+    end.record()
+    end.synchronize()
+    for g, w in zip(got, want):
+        if not torch.equal(g.contiguous().view(torch.int32), w.contiguous().view(torch.int32)):
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"{list(seqs.shape)}, Lp {prof.msc.shape[-2]}")
+    bound, by, cells = _viterbi_bound(name, prof, lens, seqs, lengths, band)
+    return {"ms": ms, "plain_ms": start.elapsed_time(end), "bound_ms": bound,
+            "bound_by": by, "cells": cells, "max_abs_err": 0.0,
+            "shape": f"{len(lens)} x Lp {prof.msc.shape[-2]}, {seqs.shape[0]} x T "
+                     f"{seqs.shape[1]}"}
+
+
+def _viterbi_line(name, r) -> str:
+    return (f"{name} at {r['shape']} ({r['cells']} cells): kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.1f} ms ({r['plain_ms'] / r['ms']:.0f}x), bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}%"
+            f" of it), bit-equal")
+
+
+def check_viterbi_kernels(dev, calls: dict, nhmmer_calls: list, seed: int) -> dict:
+    """Phase 13: both Viterbi passes of csrc/viterbi.cu against their plain
+    loops on the seeded cases, at the golden run's largest call of each pass
+    and at the shapes of VITERBI_SHAPES; findmitoscaf's ``nhmmer_search``
+    call of the golden run again, alone, with its eager launches counted;
+    returns, per pass, the numbers of its largest golden call with the
+    largest error seen."""
+    from mitoflex_tpu_torch.io import encoding
+    from mitoflex_tpu_torch.models import nhmmer
+    from mitoflex_tpu_torch.models.hmm import profile_from_consensus
+    from mitoflex_tpu_torch.ops import phmm
+    from mitoflex_tpu_torch.testing import kernel_cases, synth
+
+    t0 = time.perf_counter()
+    n = kernel_cases.check_viterbi(dev)
+    torch.cuda.synchronize()
+    _log(f"Viterbi kernels on {n} seeded (case, band) pairs (bands "
+         f"{kernel_cases.VITERBI_BANDS}; Lp 64 to 2048, L < Lp and L = Lp, 0.5-bit "
+         f"scores, one window, rows of length 0 and of N): scores bit-equal, "
+         f"coordinates exact ({time.perf_counter() - t0:.2f} s)")
+    out = {}
+    for name, recorded in calls.items():
+        args = [_viterbi_args(name, c) for c in recorded]
+        sized = [(_viterbi_bound(name, *a)[2], i) for i, a in enumerate(args)]
+        total = sum(c for c, _ in sized)
+        r = _time_viterbi(name, *args[max(sized)[1]])
+        out[name] = r
+        _log(f"golden run's largest {_viterbi_line(name, r)}; {len(recorded)} calls "
+             f"in the run, {total} cells in all")
+    stage, contigs, profiles, a, k = next(c for c in nhmmer_calls
+                                          if c[0] == "run_findmitoscaf")
+    ms, launches = _wall_ms_and_launches(
+        lambda: nhmmer.nhmmer_search(contigs, profiles, *a, **k))
+    _log(f"findmitoscaf's nhmmer_search of the golden run alone ({len(profiles)} "
+         f"profiles, {len(contigs)} contigs): {ms:.1f} ms, {launches} cudaLaunchKernel "
+         f"calls under torch.profiler")
+    rng = np.random.default_rng(seed + 13)
+    for name, Mn, L, B, T in VITERBI_SHAPES:
+        cons = [synth.random_genome(rng, L) for _ in range(Mn)]
+        profs = [phmm.stage_profile(profile_from_consensus(f"S{i}", c), device=dev)
+                 for i, c in enumerate(cons)]
+        seqs = rng.integers(0, 4, (B, T)).astype(np.int8)
+        for b in range(0, B, 3):  # a planted copy in every third window
+            at = int(rng.integers(0, T - L))
+            seqs[b, at: at + L] = encoding.encode(cons[b % Mn])
+        s = torch.from_numpy(seqs).to(dev)
+        lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+        prof = profs[0] if name == "viterbi_scan" else phmm.stack_profiles(profs)
+        _log("shape " + _viterbi_line(name, _time_viterbi(name, prof, [L] * Mn, s,
+                                                            lengths, 16, repeats=3)))
+    return out
+
+
 # ----------------------------------------------------------- device mesh
 MESH_GOLDEN_SHARDS = 4
 MESH_SMALL_SHARDS = 2
@@ -1504,7 +1739,7 @@ def run_mesh_golden(tmp: str, golden: dict, dev) -> dict:
     _same_bytes(ctx.workdir.stage_file("assemble", "contigs.fa"), golden["contigs"],
                 "golden contigs.fa")
     _same_bytes(assembled, golden["assembled"], f"golden {os.path.basename(assembled)}")
-    if ctx.device.type == "cuda" and min(launches.values()) <= 0:
+    if ctx.device.type == "cuda" and min(_sort_launches(launches).values()) <= 0:
         raise AssertionError(f"mesh golden: a kernel of the path never launched: {launches}")
     _log(f"mesh golden volume ({MESH_GOLDEN_SHARDS} shards of {dev}): clean.1.fq, "
          f"clean.2.fq, contigs.fa and {os.path.basename(assembled)} byte-identical to "
@@ -1542,6 +1777,8 @@ def run_mesh_small(tmp: str, fake, runs, dev) -> dict:
     _same_bytes(found.path, stage("card", "findmitoscaf", "cli.picked.fa"),
                 "small cli.picked.fa")
     _same_bytes(annotated.path, stage("card", "annotation", "locs.json"), "small locs.json")
+    if min(launches[k] for k in VITERBI_KERNELS) <= 0:
+        raise AssertionError(f"mesh small: a Viterbi kernel never launched: {launches}")
     one_find = _stage_wall(runs.card_out, "findmitoscaf.findmitoscaf")
     one_ann = _stage_wall(runs.card_out, "annotate.annotate")
     _log(f"mesh small read set ({MESH_SMALL_SHARDS} shards of {dev}): picked FASTA and "
@@ -1671,6 +1908,7 @@ def check_mesh_functions(dev, fake) -> None:
     wl = np.full(len(win), 512, np.int32)
     wl[::7] = 300
     model_lens = [h.length for h in hmms]
+    counters = _zeroed_counters()
     got, want = both(
         "viterbi scores",
         lambda: mesh_mod.viterbi_scores_multi_sharded(mesh, stack, model_lens, win, wl),
@@ -1685,12 +1923,16 @@ def check_mesh_functions(dev, fake) -> None:
         lambda: phmm.viterbi_scan(staged[0], torch.from_numpy(win).to(dev),
                                   torch.from_numpy(wl).to(dev), hmms[0].length))
     close(got, want, "viterbi_scan_sharded")
+    vlaunches = {k: counters[k].launches for k in VITERBI_KERNELS}
+    if min(vlaunches.values()) <= 0:
+        raise AssertionError(f"mesh functions: a Viterbi kernel never launched: {vlaunches}")
     _log(f"mesh functions alone ({MESH_GOLDEN_SHARDS} shards of {dev}) against one "
          f"device: filter {B} x {L} bit-equal; partitioned count of "
          f"{2 * reads.shape[0] * (reads.shape[1] - k + 1)} k-mers (k={k}, {high} keys with a first word >= 2**31) equal, each shard "
          f"within its key range; mapper {len(mreads)} x 150 equal; SW 61 pairs, genewise "
          f"{len(batch[0])} hits, Viterbi scores ({len(hmms)} models) and envelopes of "
-         f"{len(win)} windows: coordinates equal, scores within {MESH_SCORE_TOL}; walls, "
+         f"{len(win)} windows: coordinates equal, scores within {MESH_SCORE_TOL} (Viterbi "
+         f"kernel launches {json.dumps(vlaunches)}); walls, "
          f"s: " + ", ".join(f"{k_}: {v:.4f}" for k_, v in walls.items()))
 
 
@@ -1775,6 +2017,9 @@ def main() -> int:
         k2_golden = phase("7 golden K2 K3", check_merge_golden, merges)
         k3_golden = phase("7 golden K2 K3", check_graph_pass_k3, passes)
         del passes, merges
+        viterbi = phase("13 Viterbi", check_viterbi_kernels, dev,
+                        golden.pop("viterbi_calls"), golden.pop("nhmmer_calls"),
+                        args.seed)
         phase("12 mesh", run_mesh_golden, tmp, golden, dev)
         fake, f1, f2 = make_small_reads(args.seed, tmp)
         have_mpl = _have_matplotlib()
@@ -1822,6 +2067,10 @@ def main() -> int:
         entry("merge_sorted_runs_onepass", "merge.cu", "psort.py:467", k3_main,
               k3 + k3_golden),
         entry("sort_words2", "sort.cu", "psort.py:195", k4_main, k4),
+        *(dict(entry(name, "viterbi.cu", replaces, viterbi[name], [viterbi[name]]),
+               bound_by=viterbi[name]["bound_by"])
+          for name, replaces in (("viterbi_scores_multi", "phmm.py:351"),
+                                 ("viterbi_scan", "phmm.py:139"))),
     ]}
     print(card)
     print(json.dumps(kernels_line))

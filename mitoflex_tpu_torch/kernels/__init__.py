@@ -32,7 +32,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libmitoflex_kernels.so"
-SOURCES = ("filter.cu", "merge.cu", "sort.cu")
+SOURCES = ("filter.cu", "merge.cu", "sort.cu", "viterbi.cu")
 HEADERS = ("merge_path.cuh",)
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -138,6 +138,15 @@ def library() -> ctypes.CDLL:
             lib.mfx_merge_sorted_runs_onepass.restype = i32
             lib.mfx_sort_words2.argtypes = [vp, i64, vp, vp, vp]
             lib.mfx_sort_words2.restype = i32
+            # the profile's ten arrays, then (scores) model lengths and count
+            # or (scan) the model length; windows, lengths, B, T, Lp, window,
+            # output
+            lib.mfx_viterbi_scores.argtypes = [vp] * 10 + [vp, i32, vp, vp, i32, i32,
+                                                           i32, i32, vp, vp]
+            lib.mfx_viterbi_scores.restype = i32
+            lib.mfx_viterbi_scan.argtypes = [vp] * 10 + [i32, vp, vp, i32, i32, i32,
+                                                         i32, vp, vp]
+            lib.mfx_viterbi_scan.restype = i32
             for fn in (lib.mfx_merge_max_words, lib.mfx_merge_max_payloads,
                        lib.mfx_sort_tile_rows):
                 fn.argtypes = []

@@ -10,7 +10,12 @@ the candidate order and every tie rule are the reference's:
     I[t,j] = isc[j, x_t] + max(M[t-1,j] + tMI, I[t-1,j] + tII)   (M wins ties)
     D[t,j] = c[j-1] + max_{i<j}(M[t,i] + tMD[i] - c[i]),  c = cumsum(tDD)
 
-The reference's ``lax.scan`` over positions is a Python loop of tensor
+On a card both passes are one launch of the hand-written kernel of
+``csrc/viterbi.cu`` for a whole batch (``viterbi_scores_multi`` for every
+stacked model and window, ``viterbi_scan`` with the envelopes), bit-equal
+to the plain versions ``viterbi_scores_multi_plain`` and
+``viterbi_scan_plain``, which CPU tensors take. In those the reference's
+``lax.scan`` over positions is a Python loop of tensor
 steps, and its ``vmap`` over models a leading batch dimension. Emissions
 are an index gather (the reference's one-hot matmul picks the same value:
 one non-zero term, and ``0 * -1e30`` is ``-0.0``). The delete closure runs
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from ..device import resolve_device
 from ..models.hmm import ProfileHMM
 
@@ -123,16 +129,15 @@ def _step_inputs(seqs: torch.Tensor, lengths: torch.Tensor):
     return x.clamp(0, 3).contiguous(), valid
 
 
-def viterbi_scan(
+def viterbi_scan_plain(
     prof: DeviceProfile,
     seqs: torch.Tensor,      # [B, T] int8 (4 = N/pad)
     lengths: torch.Tensor,   # [B]
     model_len: int,
     delete_band: int = 16,
 ) -> HmmHits:
-    """Best local score per window with its envelope (sequence and model
-    from/to), carried through the forward pass. ``delete_band`` bounds the
-    delete-chain closure (0: exact)."""
+    """The plain version of :func:`viterbi_scan`: one tensor step a
+    position."""
     B, T = seqs.shape
     Lp = prof.msc.shape[0]
     dev = seqs.device
@@ -209,15 +214,15 @@ def viterbi_scan(
                    (endj[:, 0] + 1).to(i32))
 
 
-def viterbi_scores_multi(
+def viterbi_scores_multi_plain(
     profs: DeviceProfile,      # stacked: arrays with a leading model axis [M, ...]
     model_lens,                # [M] model lengths
     seqs: torch.Tensor,        # [B, T] shared windows
     lengths: torch.Tensor,     # [B]
     delete_band: int = 16,
 ) -> torch.Tensor:
-    """[M, B] best scores (no envelopes): every model scans every window;
-    the reference's ``vmap`` over models is the leading axis here."""
+    """The plain version of :func:`viterbi_scores_multi`: one tensor step a
+    position; the reference's ``vmap`` over models is the leading axis."""
     B, T = seqs.shape
     Mn, Lp = profs.msc.shape[:2]
     dev = seqs.device
@@ -254,6 +259,129 @@ def viterbi_scores_multi(
         D = torch.where(in_model, _shr(cm, NEG) + cdd_prev, NEG)
         best = torch.maximum(best, M.max(dim=2).values)
     return best
+
+
+# ------------------------------------------------------------ the kernel
+def closure_window(delete_band, scores: bool) -> int:
+    """Columns the banded delete closure spans, as the plain versions' doubling
+    rounds make it: the last shift of ``shift = 1; while shift < band: shift
+    *= 2`` (the scores pass takes ``max(band, 2)``); 0 for the scan pass's
+    exact closure."""
+    if scores:
+        band = max(delete_band, 2)
+    elif delete_band and delete_band > 0:
+        band = delete_band
+    else:
+        return 0
+    shift = 1
+    while shift < band:
+        shift *= 2
+    return shift
+
+
+def _check_inputs(what: str, prof: DeviceProfile, lead: tuple, seqs: torch.Tensor,
+                  lengths: torch.Tensor) -> None:
+    """Raise ValueError unless the kernel takes these tensors: float32
+    profile arrays of shapes ``lead + [Lp, 4]`` / ``lead + [Lp]`` / ``lead``,
+    int8 windows [B, T], int32 lengths [B], all contiguous on one card."""
+    dev = seqs.device
+    Lp = prof.msc.shape[-2] if prof.msc.dim() >= 2 else -1
+    wants = {"msc": lead + (Lp, 4), "isc": lead + (Lp, 4), "entry": lead}
+    for f in DeviceProfile._fields[:-1]:
+        t = getattr(prof, f)
+        want = wants.get(f, lead + (Lp,))
+        if t.dtype != torch.float32 or tuple(t.shape) != want or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{what}: profile {f} must be a contiguous float32 tensor "
+                             f"of shape {list(want)} on {dev}, got {t.dtype} "
+                             f"{list(t.shape)} on {t.device}")
+    if seqs.dim() != 2 or seqs.dtype != torch.int8 or not seqs.is_contiguous():
+        raise ValueError(f"{what}: seqs must be a contiguous int8 tensor [B, T], got "
+                         f"{seqs.dtype} {list(seqs.shape)}")
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (seqs.shape[0],) \
+            or lengths.device != dev or not lengths.is_contiguous():
+        raise ValueError(f"{what}: lengths must be a contiguous int32 tensor "
+                         f"[{seqs.shape[0]}] on {dev}, got {lengths.dtype} "
+                         f"{list(lengths.shape)} on {lengths.device}")
+
+
+def _profile_ptrs(prof: DeviceProfile) -> list:
+    return [getattr(prof, f).data_ptr() for f in DeviceProfile._fields[:-1]]
+
+
+def viterbi_scan(
+    prof: DeviceProfile,
+    seqs: torch.Tensor,      # [B, T] int8 (4 = N/pad)
+    lengths: torch.Tensor,   # [B] int32
+    model_len: int,
+    delete_band: int = 16,
+) -> HmmHits:
+    """Best local score per window with its envelope (sequence and model
+    from/to), carried through the forward pass. ``delete_band`` bounds the
+    delete-chain closure (0: exact). Tensors on a card: one launch of the
+    kernel of ``csrc/viterbi.cu`` for the whole batch (bit-equal to the plain
+    version); on the CPU: :func:`viterbi_scan_plain`."""
+    dev = seqs.device
+    if dev.type == "cpu":
+        return viterbi_scan_plain(prof, seqs, lengths, model_len, delete_band)
+    if dev.type != "cuda":
+        raise ValueError(f"viterbi_scan: unsupported device {dev}")
+    _check_inputs("viterbi_scan", prof, (), seqs, lengths)
+    B, T = seqs.shape
+    Lp = prof.msc.shape[0]
+    out = torch.empty((5, B), dtype=torch.int32, device=dev)
+    if B:
+        ml = max(min(int(model_len), Lp), 0)
+        err = kernels.launch(
+            dev, kernels.library().mfx_viterbi_scan, *_profile_ptrs(prof), ml,
+            seqs.data_ptr(), lengths.data_ptr(), B, T, Lp,
+            closure_window(delete_band, scores=False), out.data_ptr())
+        if err:
+            kernels.check(err, "viterbi_scan")
+        viterbi_scan.launches += 1
+    return HmmHits(out[0].view(torch.float32), out[1], out[2], out[3], out[4])
+
+
+def viterbi_scores_multi(
+    profs: DeviceProfile,      # stacked: arrays with a leading model axis [M, ...]
+    model_lens,                # [M] model lengths
+    seqs: torch.Tensor,        # [B, T] int8 shared windows
+    lengths: torch.Tensor,     # [B] int32
+    delete_band: int = 16,
+) -> torch.Tensor:
+    """[M, B] best scores (no envelopes): every model scans every window.
+    Tensors on a card: one launch of the kernel of ``csrc/viterbi.cu`` for
+    all models and windows (bit-equal to the plain version); on the CPU:
+    :func:`viterbi_scores_multi_plain`."""
+    dev = seqs.device
+    if dev.type == "cpu":
+        return viterbi_scores_multi_plain(profs, model_lens, seqs, lengths, delete_band)
+    if dev.type != "cuda":
+        raise ValueError(f"viterbi_scores_multi: unsupported device {dev}")
+    Mn = profs.msc.shape[0]
+    _check_inputs("viterbi_scores_multi", profs, (Mn,), seqs, lengths)
+    B, T = seqs.shape
+    Lp = profs.msc.shape[1]
+    lens = torch.as_tensor(model_lens).reshape(-1)
+    if lens.numel() != Mn:
+        raise ValueError(f"viterbi_scores_multi: {lens.numel()} model lengths for "
+                         f"{Mn} models")
+    lens = lens.clamp(0, Lp).to(device=dev, dtype=torch.int32)
+    out = torch.empty((Mn, B), dtype=torch.float32, device=dev)
+    if Mn and B:
+        err = kernels.launch(
+            dev, kernels.library().mfx_viterbi_scores, *_profile_ptrs(profs),
+            lens.data_ptr(), Mn, seqs.data_ptr(), lengths.data_ptr(), B, T, Lp,
+            closure_window(delete_band, scores=True), out.data_ptr())
+        if err:
+            kernels.check(err, "viterbi_scores_multi")
+        viterbi_scores_multi.launches += 1
+    return out
+
+
+# kernel launches since the last reset (plain counters, never reset here)
+viterbi_scan.launches = 0
+viterbi_scores_multi.launches = 0
 
 
 def viterbi_scores(prof: DeviceProfile, seqs: torch.Tensor, lengths: torch.Tensor,

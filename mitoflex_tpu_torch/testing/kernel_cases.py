@@ -11,7 +11,9 @@ The cases are numpy: uint32 arrays in the wrappers' word-major layout
 (``[W, n]`` keys, ``[P, n]`` payloads). :func:`check_wrappers` runs them all
 through the wrappers of ``ops/psort.py`` on a device; :func:`filter_cases`
 and :func:`check_filter` do the same for the read filter of ``ops/filter.py``
-(row widths on both of its paths, edge lengths, odd codes and valves).
+(row widths on both of its paths, edge lengths, odd codes and valves), and
+:func:`viterbi_cases` and :func:`check_viterbi` for the two Viterbi passes of
+``ops/phmm.py``.
 """
 
 from __future__ import annotations
@@ -222,4 +224,159 @@ def check_filter(device) -> int:
                             f"K1 {field} differs from filter_reads_ref ({what}, "
                             f"{'PE' if cl is not None else 'SE'} cutoffs): {name}")
         n_cases += 1
+    return n_cases
+
+
+# ------------------------------------------------------- Viterbi cases
+ViterbiCase = Tuple[str, dict, np.ndarray, np.ndarray, np.ndarray]
+VITERBI_BANDS = (16, 10, 0)
+
+
+def _viterbi_profiles(rng: np.random.Generator, lens, pad_to: int, quantised: bool,
+                      cheap_deletes: bool) -> Tuple[dict, np.ndarray, list]:
+    """Stacked profile arrays (numpy float32, a leading model axis) of
+    models of lengths ``lens`` in one shape bucket, their lengths and
+    consensus codes. Scores are perturbed per column; ``quantised`` rounds
+    every real score to 0.5 bits, so that candidates tie in M, I and D and
+    the per-column best ties across columns; ``cheap_deletes`` makes long
+    delete chains pay, so that the closure's band decides the result."""
+    from ..io import encoding
+    from ..models.hmm import profile_from_consensus
+    from ..ops import phmm
+    from . import synth
+
+    arrays, cons = [], []
+    Lp = max(lens)
+    if pad_to:
+        Lp = -(-Lp // pad_to) * pad_to
+    else:
+        Lp = max(128, 1 << (Lp - 1).bit_length())
+    for i, L in enumerate(lens):
+        c = synth.random_genome(rng, L)
+        cons.append(encoding.encode(c))
+        prof = phmm.stage_profile(profile_from_consensus(f"V{i}", c), pad_to=Lp,
+                                  device="cpu")
+        a = {f: getattr(prof, f).numpy().copy() for f in phmm.DeviceProfile._fields[:-1]}
+        real = np.arange(Lp) < L
+        for f in ("msc", "isc", "tmm", "tim", "tdm", "tmi", "tii", "tmd"):
+            noise = rng.normal(0.0, 0.4, a[f].shape).astype(np.float32)
+            a[f] = np.where(real.reshape((-1,) + (1,) * (a[f].ndim - 1)), a[f] + noise, a[f])
+        tdd = np.full(L, -0.15 if cheap_deletes else -2.3, np.float32) \
+            + rng.normal(0.0, 0.05, L).astype(np.float32)
+        if cheap_deletes:
+            a["tmd"][:L] = -1.0
+            a["tdm"][:L] = -0.5
+        a["cdd"][:L] = np.cumsum(np.minimum(tdd, 0))
+        if quantised:
+            for f in a:
+                if f == "entry":
+                    continue
+                q = np.round(a[f] * 2) / 2 + np.float32(0.0)  # no -0.0
+                a[f] = np.where(np.arange(Lp).reshape((-1,) + (1,) * (a[f].ndim - 1)) < L,
+                                q, a[f]).astype(np.float32)
+            a["entry"] = np.float32(np.round(a["entry"] * 2) / 2)
+        arrays.append(a)
+    stacked = {f: np.ascontiguousarray(np.stack([a[f] for a in arrays]).astype(np.float32))
+               for f in arrays[0]}
+    return stacked, np.asarray(lens, np.int32), cons
+
+
+def _viterbi_windows(rng: np.random.Generator, cons: list, B: int, T: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Windows [B, T] int8 with planted, mutated copies of the consensus
+    (some missing a run of columns, so the delete chain carries the path),
+    and lengths [B]: row 0 spans T; then, where B allows, a row of length
+    0, a row of N, lengths past T and negative, odd codes."""
+    seqs = rng.integers(0, 4, (B, T)).astype(np.int8)
+    lens = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    lens[0] = T
+    for i in range(B):
+        c = np.array(cons[i % len(cons)], np.int8)
+        if i % 2 and len(c) > 30:
+            cut = int(rng.integers(5, len(c) - 20))
+            c = np.concatenate([c[:cut], c[cut + int(rng.integers(4, min(40, len(c) // 3))):]])
+        c[rng.integers(0, len(c), 3)] = rng.integers(0, 4, 3)
+        at = int(rng.integers(0, max(1, T - len(c))))
+        seqs[i, at: at + len(c)] = c[: T - at]
+    edge = [(1, lambda: lens.__setitem__(1, 0)),
+            (2, lambda: seqs.__setitem__(2, 4)),
+            (3, lambda: lens.__setitem__(3, T + 7)),
+            (4, lambda: lens.__setitem__(4, -1)),
+            (5, lambda: seqs[5].__setitem__(slice(3, 9), (-3, 9, 4, 127, -128, 5)))]
+    for row, make in edge:
+        if row < B:
+            make()
+    return seqs, lens
+
+
+def viterbi_cases(seed: int = 2027) -> Iterator[ViterbiCase]:
+    """(name, stacked profile arrays, model lengths, windows, lengths) for
+    both Viterbi passes: padded lengths 128 (one column a thread), 1024
+    (two) and 2048 (four), models shorter than and as long as the padded
+    length, profiles quantised to 0.5 bits, cheap deletes, one window, rows
+    of length 0 and of N, lengths past T and negative, odd codes; long rows
+    at the small width, short ones at the large widths. Each case runs at
+    every band of ``VITERBI_BANDS``."""
+    rng = np.random.default_rng(seed)
+    specs = (  # name, model lengths, pad_to, quantised, cheap deletes, B, T
+        ("Lp 128, L 70/128, real scores", (70, 128), 0, False, False, 8, 128),
+        ("Lp 128, L 64/128, 0.5-bit scores", (64, 128), 0, True, False, 8, 128),
+        ("Lp 128, L 90/128, 0.5-bit scores, cheap deletes", (90, 128), 0, True, True, 8, 128),
+        ("Lp 128, L 100, one window", (100,), 0, True, False, 1, 128),
+        ("Lp 64 = L (pad_to 32), cheap deletes", (64, 50), 32, False, True, 8, 128),
+        ("Lp 1024, L 950, 0.5-bit scores", (950, 1024), 0, True, True, 3, 24),
+        ("Lp 2048, L 1100/2048, 0.5-bit scores", (1100, 2048), 0, True, True, 6, 20),
+    )
+    for name, lens, pad_to, quant, cheap, B, T in specs:
+        arrays, mlens, cons = _viterbi_profiles(rng, lens, pad_to, quant, cheap)
+        seqs, wl = _viterbi_windows(rng, cons, B, T)
+        yield name, arrays, mlens, seqs, wl
+
+
+def _profile(arrays: dict, m, device):
+    """Model ``m`` of the stacked arrays (``None``: the whole stack) as the
+    port's ``DeviceProfile`` on ``device``."""
+    import torch
+
+    from ..ops import phmm
+
+    pick = (lambda x: x) if m is None else (lambda x: x[m])
+    return phmm.DeviceProfile(*(torch.from_numpy(np.array(pick(arrays[f]), np.float32))
+                                .to(device) for f in phmm.DeviceProfile._fields[:-1]), 0)
+
+
+def check_viterbi(device) -> int:
+    """Every case of :func:`viterbi_cases` at every band through both
+    passes of ``ops.phmm`` on ``device`` (a card: the kernel), held against
+    the plain versions on the same tensors: scores bit for bit (float32
+    bits), every coordinate exact. The scan runs each model of the case
+    alone. Raises AssertionError on the first difference; returns the
+    number of (case, band) pairs."""
+    import torch
+
+    from ..ops import phmm
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    n_cases = 0
+    for name, arrays, mlens, seqs, wl in viterbi_cases():
+        s, l = torch.from_numpy(seqs).to(device), torch.from_numpy(wl).to(device)
+        stack = _profile(arrays, None, device)
+        for band in VITERBI_BANDS:
+            got = phmm.viterbi_scores_multi(stack, mlens.tolist(), s, l, band)
+            want = phmm.viterbi_scores_multi_plain(stack, mlens.tolist(), s, l, band)
+            if not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"viterbi_scores_multi differs from its plain "
+                                     f"version: {name}, band {band}")
+            for m, L in enumerate(mlens.tolist()):
+                prof = _profile(arrays, m, device)
+                got = phmm.viterbi_scan(prof, s, l, L, band)
+                want = phmm.viterbi_scan_plain(prof, s, l, L, band)
+                for field, g, w in zip(phmm.HmmHits._fields, got, want):
+                    if not torch.equal(bits(g), bits(w)):
+                        raise AssertionError(
+                            f"viterbi_scan {field} differs from its plain version: "
+                            f"{name}, model {m}, band {band}")
+            n_cases += 1
     return n_cases
