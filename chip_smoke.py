@@ -44,13 +44,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    rRNAs whose covariance models, CLEN 72, 950 and 1100, the CM fixture
    writes) at 400x plus two 8 kb nuclear decoys at 12x, 150 bp pairs,
    insert 300, 1% errors, from --seed, through the port's
-   PipelineContext(device="cuda") and ``run_all``. All six kernels' launch
-   counters (K1 to K4 and the two Viterbi passes) are zeroed just before and
-   read just after; each must be > 0, and the plain Viterbi loops must see
-   no card tensor. Every Viterbi call's inputs are kept for phase 13, and
-   every ``nhmmer_search`` call is timed by the stage that made it: under
+   PipelineContext(device="cuda") and ``run_all``. All seven kernels' launch
+   counters (K1 to K4, the two Viterbi passes and Smith-Waterman) are zeroed
+   just before and read just after; each must be > 0, and the plain Viterbi
+   and SW loops must see no card tensor. Every Viterbi call's inputs are
+   kept for phase 13 and every SW call's for phase 14, and every
+   ``nhmmer_search`` call is timed by the stage that made it: under
    annotate this splits the tRNA and rRNA walls into the p7 filter scan and
-   the CYK refinement.
+   the CYK refinement. The SW calls and blast's ``_batched_sw`` are timed
+   too, which splits annotate's tblastn wall into the SW batches and the
+   host work around them.
    The summary must hold ``picked``, ``locs``, ``circular`` (true) and
    ``plots``; ``depth_mean`` of ``mt1`` in ``tracks.json`` must lie between
    0.7 and 1.05 times the planted 400x, ``depth.txt`` must have one row per
@@ -117,8 +120,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    inputs (filter, partitioned counting with keys whose first word is at
    least 2**31 and each shard inside its key range, mapper, SW, genewise,
    both Viterbi passes: coordinates equal, scores within 1e-4; both Viterbi
-   kernels launched, and on the small set's sharded findmitoscaf and
-   annotate too); and
+   kernels and the SW kernel launched, and on the small set's sharded
+   findmitoscaf and annotate too); and
    ``init_distributed`` with NCCL at world size 1 through a file://
    rendezvous, one all_reduce, torn down. Mesh walls are printed beside
    the single-device walls of this run.
@@ -134,12 +137,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    TB/s where that is larger; then findmitoscaf's ``nhmmer_search`` call of
    phase 6 again, alone, with its ``cudaLaunchKernel`` calls counted under
    torch.profiler.
+14. The Smith-Waterman kernel of mitoflex_tpu_torch/csrc/sw.cu (run right
+   after phase 13) against its plain loop on the same card tensors, all
+   nine fields bit-equal: on every seeded case of ``kernel_cases.sw_cases``
+   (BLOSUM62 and DNA gap costs, query lengths around the kernel's lanes and
+   strips, empty, all-N/X and odd-code rows, tied best cells, and a
+   16,500-column contig against 300-base windows) and at the golden run's
+   largest SW call, each timed beside its bound: the operations its cells
+   need at 67 TFLOP/s, or its bytes once at 3.35 TB/s where that is larger;
+   then every SW call of the golden run through the kernel again, timed.
 
 Kernel times are medians of CUDA-event-timed repeats after a warm-up; one
 repeat is one call of the kernel's wrapper between two events, so it holds
 the wrapper's host time before the launch too. K1 to K4's bound is the
 bytes of their inputs and outputs, moved once at the H100's 3.35 TB/s; the
-Viterbi kernels' is their operations (phase 13). The
+Viterbi and SW kernels' is their operations (phases 13 and 14). The
 last two lines are one JSON object of per-kernel results and then
 {"ok": true, "device": {...}}; the card's name and power limit (from
 nvidia-smi) are printed before them. Without a CUDA device the script exits
@@ -692,23 +704,25 @@ def _slice_config(tmp: str, workname: str, golden: bool, fake):
 
 
 VITERBI_KERNELS = ("viterbi_scores_multi", "viterbi_scan")
+# the search kernels: the two Viterbi passes and Smith-Waterman
+SEARCH_KERNELS = VITERBI_KERNELS + ("sw_align",)
 
 
 def _launch_counters():
     from mitoflex_tpu_torch.ops import filter as F
-    from mitoflex_tpu_torch.ops import phmm, psort
+    from mitoflex_tpu_torch.ops import phmm, psort, sw
 
     return {"filter_reads": F.filter_reads, "merge_sorted_runs": psort.merge_sorted_runs,
             "merge_sorted_runs_onepass": psort.merge_sorted_runs_onepass,
             "sort_words2": psort.sort_words2,
             "viterbi_scores_multi": phmm.viterbi_scores_multi,
-            "viterbi_scan": phmm.viterbi_scan}
+            "viterbi_scan": phmm.viterbi_scan, "sw_align": sw.sw_align}
 
 
 def _sort_launches(launches: dict) -> dict:
-    """K1 to K4's counts: the paths without a profile search (filter and
-    assemble) launch no Viterbi kernel."""
-    return {k: v for k, v in launches.items() if k not in VITERBI_KERNELS}
+    """K1 to K4's counts: the paths without a search (filter and assemble)
+    launch no Viterbi or Smith-Waterman kernel."""
+    return {k: v for k, v in launches.items() if k not in SEARCH_KERNELS}
 
 
 def _have_matplotlib() -> bool:
@@ -758,8 +772,8 @@ def run_golden_slice(seed: int, tmp: str):
     files and filter and assemble walls, for phase 12."""
     from mitoflex_tpu_torch import pipeline
     from mitoflex_tpu_torch.io import fasta
-    from mitoflex_tpu_torch.models import nhmmer
-    from mitoflex_tpu_torch.ops import dbg, mapper, phmm, psort
+    from mitoflex_tpu_torch.models import blast, nhmmer
+    from mitoflex_tpu_torch.ops import dbg, mapper, phmm, psort, sw
     from mitoflex_tpu_torch.stages import visualize as vis
     from mitoflex_tpu_torch.testing import profile_fixture, synth
 
@@ -804,12 +818,35 @@ def run_golden_slice(seed: int, tmp: str):
             return real_viterbi[name](prof, *a, **k)
         return run
 
-    def watched_plain(name):
+    def watched_plain(name, fn):
         def run(*a, **k):
             if any(isinstance(x, torch.Tensor) and x.is_cuda for x in a):
                 plain_on_card.append(name)
-            return real_plain[name](*a, **k)
+            return fn(*a, **k)
         return run
+
+    # every Smith-Waterman call's inputs and wall, for phase 14, and the
+    # walls of blast's _batched_sw (padding, the SW calls, the copies back)
+    # by the stage that called it; the plain loop must see no card tensor
+    real_sw, real_sw_plain, real_batched = sw.sw_align, sw.sw_align_plain, blast._batched_sw
+    sw_calls, sw_s, batched_s = [], {}, {}
+
+    def kept_sw(*a, **k):
+        sw_calls.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a)
+                        + (k,))
+        t0 = time.perf_counter()
+        out = real_sw(*a, **k)
+        torch.cuda.synchronize()
+        sw_s[current["stage"]] = sw_s.get(current["stage"], 0.0) + time.perf_counter() - t0
+        return out
+
+    def timed_batched_sw(*a, **k):
+        t0 = time.perf_counter()
+        out = real_batched(*a, **k)
+        torch.cuda.synchronize()
+        batched_s[current["stage"]] = (batched_s.get(current["stage"], 0.0)
+                                       + time.perf_counter() - t0)
+        return out
 
     # nhmmer_search's walls by the stage that called it, and each call under
     # annotate with its models (the tRNA and rRNA searches' p7 filter scans)
@@ -866,7 +903,8 @@ def run_golden_slice(seed: int, tmp: str):
     # the wrapper counts on the module attribute of its own name, which is
     # the recording function while this run lasts
     recorders = {n: kept_viterbi(n) for n in VITERBI_KERNELS}
-    counters = {**_launch_counters(), "merge_sorted_runs": kept_merge, **recorders}
+    counters = {**_launch_counters(), "merge_sorted_runs": kept_merge, **recorders,
+                "sw_align": kept_sw}
     ctx = pipeline.PipelineContext.create(cfg, device="cuda")
     dbg.graph_unitig_pass = kept_graph_pass
     psort.merge_sorted_runs = kept_merge
@@ -875,7 +913,9 @@ def run_golden_slice(seed: int, tmp: str):
     for n in VITERBI_KERNELS:
         setattr(phmm, n, recorders[n])
     for n in plain_names:
-        setattr(phmm, n, watched_plain(n))
+        setattr(phmm, n, watched_plain(n, real_plain[n]))
+    sw.sw_align, blast._batched_sw = kept_sw, timed_batched_sw
+    sw.sw_align_plain = watched_plain("sw_align_plain", real_sw_plain)
     for name in stages:
         setattr(pipeline, name, timed_stage(name))
     try:
@@ -903,6 +943,7 @@ def run_golden_slice(seed: int, tmp: str):
         nhmmer.nhmmer_search = real_nhmmer
         for n, fn in {**real_viterbi, **real_plain}.items():
             setattr(phmm, n, fn)
+        sw.sw_align, sw.sw_align_plain, blast._batched_sw = real_sw, real_sw_plain, real_batched
         for name in stages:
             setattr(pipeline, name, real_stages[name])
     filter_s, assemble_s, find_s, annotate_s, visualize_s = (stage_s[n] for n in stages)
@@ -917,9 +958,17 @@ def run_golden_slice(seed: int, tmp: str):
          f"{aw['trna']:.3f} s = p7 filter scan {trna_p7:.3f} s + CYK refinement and the "
          f"rest {aw['trna'] - trna_p7:.3f} s; rRNA wall {aw['rrna']:.3f} s = p7 filter "
          f"scan {rrna_p7:.3f} s + banded CYK and the rest {aw['rrna'] - rrna_p7:.3f} s")
+    tbl = aw["tblastn"]
+    tbl_batched, tbl_sw = batched_s.get("run_annotate", 0.0), sw_s.get("run_annotate", 0.0)
+    _log(f"Smith-Waterman: {len(sw_calls)} sw_align calls, walls by stage "
+         + ", ".join(f"{k}: {v:.4f} s" for k, v in sw_s.items())
+         + f"; annotate's tblastn wall {tbl:.3f} s = _batched_sw {tbl_batched:.4f} s (of "
+         f"which the sw_align calls {tbl_sw:.4f} s, the rest padding and copies) + host "
+         f"work (seed join, windows, hit table) {tbl - tbl_batched:.3f} s; findmitoscaf's "
+         f"_batched_sw {batched_s.get('run_findmitoscaf', 0.0):.4f} s")
     if plain_on_card:
-        raise AssertionError(f"golden all: the plain Viterbi loops ran on card tensors: "
-                             f"{sorted(set(plain_on_card))}")
+        raise AssertionError(f"golden all: the plain Viterbi or SW loops ran on card "
+                             f"tensors: {sorted(set(plain_on_card))}")
     _log(f"all walls: run_all {all_s:.3f} s"
          + ("" if have_mpl else " (without visualize)")
          + f"; filter {filter_s:.3f} s ({res.reads_kept}/{res.reads_in} "
@@ -979,7 +1028,7 @@ def run_golden_slice(seed: int, tmp: str):
               "contigs": ctx.workdir.stage_file("assemble", "contigs.fa"),
               "assembled": stage_out["run_assemble"], "filter_s": filter_s,
               "assemble_s": assemble_s, "viterbi_calls": viterbi_calls,
-              "nhmmer_calls": nhmmer_calls}
+              "nhmmer_calls": nhmmer_calls, "sw_calls": sw_calls}
     return launches, passes, merges, golden
 
 
@@ -1694,6 +1743,103 @@ def check_viterbi_kernels(dev, calls: dict, nhmmer_calls: list, seed: int) -> di
     return out
 
 
+# ------------------------------------------------- Smith-Waterman kernel
+# operations a cell (query column x target position), counted from
+# ops/sw.py's plain version: 14 float32 (the substitution lookup; E's two
+# subtractions and compare; the fresh-start compare, the diagonal's clamp
+# and add; H''s compare; F's two subtractions and compare, in the
+# sequential form of the plain version's prefix max, whose log2(Lq)
+# doubling rounds the recurrence does not need; H's compare and clamp; the
+# best's compare) and 47 int32 (six path-field selects each for E, the
+# diagonal, H', F, H and the per-column best, two for the best's position,
+# eight increments and the match compare)
+SW_OPS_PER_CELL = 61
+
+
+def _sw_bound(q, ql, t, tl, sub, *_) -> tuple:
+    """(bound ms, bound_by, cells): the larger of the operations this call's
+    cells need (each row's query length x target length) at the float32
+    rate and its inputs and outputs once at the memory rate."""
+    Lq, Lt = q.shape[1], t.shape[1]
+    cells = int((ql.to(torch.int64).clamp(0, Lq) * tl.to(torch.int64).clamp(0, Lt)).sum())
+    op_ms = cells * SW_OPS_PER_CELL / F32_OPS_PER_MS
+    mem_ms = _bound_ms(q, ql, t, tl, sub) + 9 * 4 * q.shape[0] / HBM_BYTES_PER_MS
+    return max(op_ms, mem_ms), ("operations" if op_ms >= mem_ms else "bytes"), cells
+
+
+def _time_sw(args, kw, repeats: int = 5, plain: bool = True) -> dict:
+    """The kernel (median of CUDA-event-timed wrapper calls) and, with
+    ``plain``, the plain loop (one call) on the same card tensors, all nine
+    fields bit-equal, or AssertionError."""
+    from mitoflex_tpu_torch.ops import sw
+
+    q, t = args[0], args[2]
+    out = {"ms": _cuda_ms(lambda: sw.sw_align(*args, **kw), repeats), "max_abs_err": 0.0,
+           "shape": f"{q.shape[0]} pairs x Lq {q.shape[1]} x Lt {t.shape[1]}"}
+    out["bound_ms"], out["bound_by"], out["cells"] = _sw_bound(*args)
+    if plain:
+        got = sw.sw_align(*args, **kw)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = sw.sw_align_plain(*args, **kw)
+        end.record()
+        end.synchronize()
+        out["plain_ms"] = start.elapsed_time(end)
+        for field, g, w in zip(sw.SwHits._fields, got, want):
+            if not torch.equal(g.contiguous().view(torch.int32),
+                               w.contiguous().view(torch.int32)):
+                raise AssertionError(f"sw_align {field} differs from its plain version at "
+                                     f"{out['shape']}")
+    return out
+
+
+def _sw_line(r) -> str:
+    plain = (f", plain {r['plain_ms']:.1f} ms ({r['plain_ms'] / r['ms']:.0f}x), bit-equal"
+             if "plain_ms" in r else "")
+    return (f"{r['shape']} ({r['cells']} cells): kernel {r['ms']:.4f} ms{plain}, bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']} "
+            f"({100 * r['bound_ms'] / r['ms']:.2f}% of it)")
+
+
+def check_sw_kernel(dev, calls: list) -> dict:
+    """Phase 14: the Smith-Waterman kernel of csrc/sw.cu against its plain
+    loop on every case of ``kernel_cases.sw_cases`` (the blastn-size one
+    included) and at the golden run's largest call, each timed beside its
+    bound (the plain loop too at the blastn size and the golden call); the
+    golden run's every call through the kernel once more, timed; returns
+    the numbers of the golden run's largest call."""
+    from mitoflex_tpu_torch.ops import sw
+    from mitoflex_tpu_torch.testing import kernel_cases
+
+    t0 = time.perf_counter()
+    n = kernel_cases.check_sw(dev)
+    torch.cuda.synchronize()
+    _log(f"SW kernel on {n} seeded cases (BLOSUM62 at 12/1, DNA at 7/2, 11/1 and 3/3, Lq 1 "
+         f"to 257 around the 4-column lanes and 128-column strips, empty, all-N/X and "
+         f"odd-code rows, tied best cells, the blastn size): all nine fields bit-equal "
+         f"to the plain loop ({time.perf_counter() - t0:.2f} s)")
+    for case in kernel_cases.sw_cases():
+        args, go, ge = kernel_cases.sw_tensors(case, dev)
+        big = case[1].shape[1] >= kernel_cases.SW_BLASTN_LQ
+        r = _time_sw(args + (go, ge), {}, repeats=3, plain=big)
+        _log(f"SW case {case[0]!r}: {_sw_line(r)}")
+    if not calls:
+        raise AssertionError("the golden run made no sw_align call")
+    sized = [(_sw_bound(*c[:-1])[2], i) for i, c in enumerate(calls)]
+    largest = calls[max(sized)[1]]
+    r = _time_sw(largest[:-1], largest[-1])
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for c in calls:
+        sw.sw_align(*c[:-1], **c[-1])
+    end.record()
+    end.synchronize()
+    _log(f"golden run's largest sw_align call: {_sw_line(r)}; {len(calls)} calls in the "
+         f"run, {sum(c for c, _ in sized)} cells in all, all of them through the kernel "
+         f"again back to back {start.elapsed_time(end):.3f} ms")
+    return r
+
+
 # ----------------------------------------------------------- device mesh
 MESH_GOLDEN_SHARDS = 4
 MESH_SMALL_SHARDS = 2
@@ -1777,8 +1923,8 @@ def run_mesh_small(tmp: str, fake, runs, dev) -> dict:
     _same_bytes(found.path, stage("card", "findmitoscaf", "cli.picked.fa"),
                 "small cli.picked.fa")
     _same_bytes(annotated.path, stage("card", "annotation", "locs.json"), "small locs.json")
-    if min(launches[k] for k in VITERBI_KERNELS) <= 0:
-        raise AssertionError(f"mesh small: a Viterbi kernel never launched: {launches}")
+    if min(launches[k] for k in SEARCH_KERNELS) <= 0:
+        raise AssertionError(f"mesh small: a Viterbi or SW kernel never launched: {launches}")
     one_find = _stage_wall(runs.card_out, "findmitoscaf.findmitoscaf")
     one_ann = _stage_wall(runs.card_out, "annotate.annotate")
     _log(f"mesh small read set ({MESH_SMALL_SHARDS} shards of {dev}): picked FASTA and "
@@ -1879,6 +2025,7 @@ def check_mesh_functions(dev, fake) -> None:
                 raise AssertionError(f"{what}: {name} differs from the single-device call")
 
     # Smith-Waterman: 61 nucleotide pairs with planted mismatches
+    counters = _zeroed_counters()
     q = rng.integers(0, 4, (61, 80)).astype(np.int8)
     t = q.copy()
     t[:, 10:14] = (t[:, 10:14] + 1) % 4
@@ -1908,7 +2055,6 @@ def check_mesh_functions(dev, fake) -> None:
     wl = np.full(len(win), 512, np.int32)
     wl[::7] = 300
     model_lens = [h.length for h in hmms]
-    counters = _zeroed_counters()
     got, want = both(
         "viterbi scores",
         lambda: mesh_mod.viterbi_scores_multi_sharded(mesh, stack, model_lens, win, wl),
@@ -1923,16 +2069,17 @@ def check_mesh_functions(dev, fake) -> None:
         lambda: phmm.viterbi_scan(staged[0], torch.from_numpy(win).to(dev),
                                   torch.from_numpy(wl).to(dev), hmms[0].length))
     close(got, want, "viterbi_scan_sharded")
-    vlaunches = {k: counters[k].launches for k in VITERBI_KERNELS}
+    vlaunches = {k: counters[k].launches for k in SEARCH_KERNELS}
     if min(vlaunches.values()) <= 0:
-        raise AssertionError(f"mesh functions: a Viterbi kernel never launched: {vlaunches}")
+        raise AssertionError(f"mesh functions: a Viterbi or SW kernel never launched: "
+                             f"{vlaunches}")
     _log(f"mesh functions alone ({MESH_GOLDEN_SHARDS} shards of {dev}) against one "
          f"device: filter {B} x {L} bit-equal; partitioned count of "
          f"{2 * reads.shape[0] * (reads.shape[1] - k + 1)} k-mers (k={k}, {high} keys with a first word >= 2**31) equal, each shard "
          f"within its key range; mapper {len(mreads)} x 150 equal; SW 61 pairs, genewise "
          f"{len(batch[0])} hits, Viterbi scores ({len(hmms)} models) and envelopes of "
          f"{len(win)} windows: coordinates equal, scores within {MESH_SCORE_TOL} (Viterbi "
-         f"kernel launches {json.dumps(vlaunches)}); walls, "
+         f"and SW kernel launches {json.dumps(vlaunches)}); walls, "
          f"s: " + ", ".join(f"{k_}: {v:.4f}" for k_, v in walls.items()))
 
 
@@ -2020,6 +2167,7 @@ def main() -> int:
         viterbi = phase("13 Viterbi", check_viterbi_kernels, dev,
                         golden.pop("viterbi_calls"), golden.pop("nhmmer_calls"),
                         args.seed)
+        sw_golden = phase("14 SW", check_sw_kernel, dev, golden.pop("sw_calls"))
         phase("12 mesh", run_mesh_golden, tmp, golden, dev)
         fake, f1, f2 = make_small_reads(args.seed, tmp)
         have_mpl = _have_matplotlib()
@@ -2071,6 +2219,8 @@ def main() -> int:
                bound_by=viterbi[name]["bound_by"])
           for name, replaces in (("viterbi_scores_multi", "phmm.py:351"),
                                  ("viterbi_scan", "phmm.py:139"))),
+        dict(entry("sw_align", "sw.cu", "sw.py:60", sw_golden, [sw_golden]),
+             bound_by=sw_golden["bound_by"]),
     ]}
     print(card)
     print(json.dumps(kernels_line))

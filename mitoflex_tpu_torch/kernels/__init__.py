@@ -32,7 +32,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libmitoflex_kernels.so"
-SOURCES = ("filter.cu", "merge.cu", "sort.cu", "viterbi.cu")
+SOURCES = ("filter.cu", "merge.cu", "sort.cu", "viterbi.cu", "sw.cu")
 HEADERS = ("merge_path.cuh",)
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -147,6 +147,11 @@ def library() -> ctypes.CDLL:
             lib.mfx_viterbi_scan.argtypes = [vp] * 10 + [i32, vp, vp, i32, i32, i32,
                                                          i32, vp, vp]
             lib.mfx_viterbi_scan.restype = i32
+            # queries, q_lens, targets, t_lens, matrix, K, B, Lq, Lt, gap open
+            # and extend, scratch, output, stream
+            lib.mfx_sw_align.argtypes = [vp] * 5 + [i32] * 4 + [ctypes.c_float] * 2 \
+                + [vp, vp, vp]
+            lib.mfx_sw_align.restype = i32
             for fn in (lib.mfx_merge_max_words, lib.mfx_merge_max_payloads,
                        lib.mfx_sort_tile_rows):
                 fn.argtypes = []

@@ -11,17 +11,22 @@ forward pass. The recurrences and every tie rule are the reference's:
     F[t,j] = max_{i<j}(H'[t,i] + ext * i) - ext * j - (open - ext)
     H[t,j] = max(F if F > H' else H', 0)
 
-The reference's ``lax.scan`` over target positions is a Python loop of
-tensor steps. Substitution scores are an index gather (the reference's
-one-hot einsum sums one non-zero term). The F closure is an inclusive
-prefix max with the leftmost maximum on ties, the result of the reference's
+On a card a call is one launch of the hand-written kernel of
+``csrc/sw.cu`` for the whole batch, bit-equal to the plain version
+``sw_align_plain`` (with integer substitution scores and gap costs, which
+is all the pipeline uses), which CPU tensors take. In the plain version the
+reference's ``lax.scan`` over target positions is a Python loop of tensor
+steps. Substitution scores are an index gather (the reference's one-hot
+einsum sums one non-zero term). The F closure is an inclusive prefix max
+with the leftmost maximum on ties, the result of the reference's
 associative scan; it carries the column of each maximum and gathers the
 path counts from it. The six integer path fields ride as one [6, B, Lq]
 tensor, so a step is a few dozen tensor operations whatever the widths.
 
 Steps past every row's target length, and columns past every row's query
-length, change no result (their cells are masked to 0), so a call runs
-``max(t_lens)`` steps over ``max(q_lens)`` columns.
+length, change no result (their cells are masked to 0), so the plain
+version runs ``max(t_lens)`` steps over ``max(q_lens)`` columns and the
+kernel stops each row at its own lengths.
 
 Gap convention: a gap of length g costs gap_open + (g-1)*gap_extend.
 """
@@ -33,6 +38,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .. import kernels
 
 NEG = -1e30
 
@@ -84,7 +91,7 @@ def _shr(x: torch.Tensor, fill) -> torch.Tensor:
     return F.pad(x[..., :-1], (1, 0), value=fill)
 
 
-def sw_align(
+def sw_align_plain(
     queries: torch.Tensor,   # [B, Lq] int8 symbol codes
     q_lens: torch.Tensor,    # [B]
     targets: torch.Tensor,   # [B, Lt] int8
@@ -182,3 +189,87 @@ def sw_align(
         n_ident=pick(bV_p[_ID]), n_cols=pick(bV_p[_NC]),
         n_gapopen=pick(bV_p[_GO]), n_gapcols=pick(bV_p[_GC]),
     )
+
+
+# fields of the kernel's [9, B] int32 output, in SwHits order (the score as
+# float32 bits)
+_OUT_ROWS = len(SwHits._fields)
+# columns of one strip of the kernel (csrc/sw.cu kStrip); a query longer
+# than that carries each target position's state across strips through a
+# [B, Lt, 14] int32 scratch tensor
+KERNEL_STRIP = 128
+_BOUNDARY_WORDS = 14
+
+
+def _check_inputs(queries: torch.Tensor, q_lens: torch.Tensor, targets: torch.Tensor,
+                  t_lens: torch.Tensor, submat) -> tuple:
+    """The lengths as int32 and the matrix as a float32 tensor on the
+    queries' device; ValueError unless the kernel takes these arguments:
+    int8 queries [B, Lq] and targets [B, Lt], integer lengths [B], a square
+    matrix, all contiguous on one device. Lengths of another integer type,
+    and a matrix given as an array or in another type, are converted there."""
+    dev = queries.device
+    for name, x in (("queries", queries), ("targets", targets)):
+        if x.dim() != 2 or x.dtype != torch.int8 or not x.is_contiguous() \
+                or x.device != dev:
+            raise ValueError(f"sw_align: {name} must be a contiguous int8 tensor [B, L] "
+                             f"on {dev}, got {x.dtype} {list(x.shape)} on {x.device}")
+    B = queries.shape[0]
+    if targets.shape[0] != B:
+        raise ValueError(f"sw_align: {B} queries but {targets.shape[0]} targets")
+    lens = []
+    for name, x in (("q_lens", q_lens), ("t_lens", t_lens)):
+        if x.dtype.is_floating_point or x.dtype.is_complex or x.dtype == torch.bool \
+                or tuple(x.shape) != (B,) or x.device != dev:
+            raise ValueError(f"sw_align: {name} must be an integer tensor [{B}] on {dev}, "
+                             f"got {x.dtype} {list(x.shape)} on {x.device}")
+        lens.append(x.to(torch.int32).contiguous())
+    sub = submat if isinstance(submat, torch.Tensor) \
+        else torch.as_tensor(np.asarray(submat), dtype=torch.float32, device=dev)
+    if sub.device != dev or sub.dim() != 2 or sub.shape[0] != sub.shape[1] \
+            or sub.shape[0] < 1:
+        raise ValueError(f"sw_align: submat must be a square [K, K] matrix on {dev}, got "
+                         f"{list(sub.shape)} on {sub.device}")
+    return lens[0], lens[1], sub.to(torch.float32).contiguous()
+
+
+def sw_align(
+    queries: torch.Tensor,   # [B, Lq] int8 symbol codes
+    q_lens: torch.Tensor,    # [B] integer
+    targets: torch.Tensor,   # [B, Lt] int8
+    t_lens: torch.Tensor,    # [B] integer
+    submat,                  # [K, K] substitution scores (array or tensor)
+    gap_open: float = 11.0,
+    gap_extend: float = 1.0,
+) -> SwHits:
+    """Best local alignment of query row i with target row i, with its
+    envelope and path counts. Tensors on a card: one launch of the kernel
+    of ``csrc/sw.cu`` for the whole batch (each row stops at its own
+    lengths; no host sync); on the CPU: :func:`sw_align_plain`."""
+    dev = queries.device
+    if dev.type == "cpu":
+        return sw_align_plain(queries, q_lens, targets, t_lens, submat, gap_open,
+                              gap_extend)
+    if dev.type != "cuda":
+        raise ValueError(f"sw_align: unsupported device {dev}")
+    q_lens, t_lens, sub = _check_inputs(queries, q_lens, targets, t_lens, submat)
+    B, Lq = queries.shape
+    Lt = targets.shape[1]
+    out = torch.empty((_OUT_ROWS, B), dtype=torch.int32, device=dev)
+    if B:
+        scratch = None
+        if Lq > KERNEL_STRIP and Lt:
+            scratch = torch.empty((B, Lt, _BOUNDARY_WORDS), dtype=torch.int32, device=dev)
+        err = kernels.launch(
+            dev, kernels.library().mfx_sw_align, queries.data_ptr(), q_lens.data_ptr(),
+            targets.data_ptr(), t_lens.data_ptr(), sub.data_ptr(), sub.shape[0], B, Lq,
+            Lt, float(gap_open), float(gap_extend),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr())
+        if err:
+            kernels.check(err, "sw_align")
+        sw_align.launches += 1
+    return SwHits(out[0].view(torch.float32), *out[1:])
+
+
+# kernel launches since the last reset (a plain counter, never reset here)
+sw_align.launches = 0

@@ -13,7 +13,8 @@ through the wrappers of ``ops/psort.py`` on a device; :func:`filter_cases`
 and :func:`check_filter` do the same for the read filter of ``ops/filter.py``
 (row widths on both of its paths, edge lengths, odd codes and valves), and
 :func:`viterbi_cases` and :func:`check_viterbi` for the two Viterbi passes of
-``ops/phmm.py``.
+``ops/phmm.py``, and :func:`sw_cases` and :func:`check_sw` for the
+Smith-Waterman of ``ops/sw.py``.
 """
 
 from __future__ import annotations
@@ -379,4 +380,155 @@ def check_viterbi(device) -> int:
                             f"viterbi_scan {field} differs from its plain version: "
                             f"{name}, model {m}, band {band}")
             n_cases += 1
+    return n_cases
+
+
+# ------------------------------------------------ Smith-Waterman cases
+SwCase = Tuple[str, np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray, float, float]
+# the query length of the blastn-size case (a whole contig against a window)
+SW_BLASTN_LQ = 16500
+
+
+def _sw_pairs(rng: np.random.Generator, q_lens, t_lens, K: int, fill: int,
+              copies: int = 1) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Queries and targets [B, max length] int8 padded with ``fill``: random
+    codes below K - 1, and in every target but each fourth ``copies``
+    mutated copies of its query (a substitution pair, a 3-residue insertion
+    and a 2-residue deletion) where they fit."""
+    q_lens = np.asarray(q_lens, np.int32)
+    t_lens = np.asarray(t_lens, np.int32)
+    B = len(q_lens)
+    q = np.full((B, max(int(q_lens.max()), 1)), fill, np.int8)
+    t = np.full((B, max(int(t_lens.max()), 1)), fill, np.int8)
+    for i in range(B):
+        qi = rng.integers(0, K - 1, q_lens[i]).astype(np.int8)
+        ti = rng.integers(0, K - 1, t_lens[i]).astype(np.int8)
+        if i % 4 != 3 and q_lens[i] > 4:
+            h = int(q_lens[i]) // 2
+            core = np.concatenate([qi[:h], rng.integers(0, K - 1, 3), qi[h + 2:]]).astype(np.int8)
+            core[rng.integers(0, len(core), 2)] = rng.integers(0, K - 1, 2)
+            room = int(t_lens[i]) - copies * len(core)
+            at = int(rng.integers(0, room + 1)) if room > 0 else 0
+            for _ in range(copies):
+                ti[at: at + len(core)] = core[: max(int(t_lens[i]) - at, 0)]
+                at += len(core)
+        q[i, : q_lens[i]] = qi
+        t[i, : t_lens[i]] = ti
+    return q, q_lens, t, t_lens
+
+
+def sw_cases(seed: int = 2028, blastn_size: bool = True) -> Iterator[SwCase]:
+    """(name, queries, q_lens, targets, t_lens, matrix, gap_open,
+    gap_extend) for ``sw_align``: BLOSUM62 at (12, 1) and the nucleotide
+    matrix at (7, 2) and (11, 1) on mutated copies; one query column; rows
+    with q_len 0 and t_len 0; all-N and all-X rows; odd codes (negative and
+    >= K); tandem repeats, whose best cells tie; a target holding its query
+    twice; open == extend; query lengths on both sides of the kernel's
+    4-column lanes and 128-column strips (1 to 257); and, with
+    ``blastn_size``, a 16,500-column contig against 300-base windows."""
+    from ..io import encoding
+    from ..models import codon
+    from ..ops import sw
+
+    rng = np.random.default_rng(seed)
+    aa, naa, X = codon.blosum62().astype(np.float32), codon.NUM_AA, codon.X_CODE
+    nt, N = sw.nucleotide_matrix().astype(np.float32), encoding.N
+
+    ql = rng.integers(40, 101, 8)
+    yield ("BLOSUM62 (12, 1), mutated copies", *_sw_pairs(rng, ql, ql + 60, naa, X),
+           aa, 12.0, 1.0)
+    ql = rng.integers(8, 71, 8)
+    yield ("DNA (7, 2), mutated copies",
+           *_sw_pairs(rng, ql, rng.integers(8, 121, 8), 5, N), nt, 7.0, 2.0)
+    ql = rng.integers(8, 71, 8)
+    yield ("DNA (11, 1), mutated copies",
+           *_sw_pairs(rng, ql, rng.integers(8, 121, 8), 5, N), nt, 11.0, 1.0)
+
+    q = np.array([[0], [1], [4], [2]], np.int8)
+    t = rng.integers(0, 4, (4, 9)).astype(np.int8)
+    t[3] = 2
+    yield ("Lq 1", q, np.array([1, 1, 1, 1], np.int32), t,
+           np.array([9, 5, 9, 1], np.int32), nt, 7.0, 2.0)
+
+    q, _, t, _ = _sw_pairs(rng, [30] * 4, [50] * 4, 5, N)
+    yield ("rows with q_len 0 and t_len 0", q, np.array([0, 30, 30, 0], np.int32), t,
+           np.array([50, 0, 50, 0], np.int32), nt, 7.0, 2.0)
+
+    q, ql, t, tl = _sw_pairs(rng, [40] * 4, [80] * 4, 5, N)
+    q[0] = N
+    t[1] = N
+    yield ("all-N rows", q, ql, t, tl, nt, 7.0, 2.0)
+    q, ql, t, tl = _sw_pairs(rng, [40] * 4, [80] * 4, naa, X)
+    q[0] = X
+    t[1] = X
+    yield ("all-X rows", q, ql, t, tl, aa, 12.0, 1.0)
+
+    q, ql, t, tl = _sw_pairs(rng, [40] * 4, [80] * 4, naa, X)
+    q[:, 3:9] = np.array([-3, naa, naa + 7, 127, -128, -1], np.int8)
+    t[:, 20:26] = np.array([-3, naa, naa + 7, 127, -128, -1], np.int8)
+    t[2, 40:46] = q[2, 3:9]
+    yield ("odd codes (negative, >= K)", q, ql, t, tl, aa, 12.0, 1.0)
+
+    unit = np.array([0, 1, 2, 3, 0, 1], np.int8)
+    q = np.stack([np.tile(unit, 8), np.tile(unit[:3], 16), np.tile(unit, 8),
+                  np.tile(unit[:2], 24)])
+    t = np.stack([np.tile(unit, 15)[:90], np.tile(unit[:3], 30), np.tile(unit[:4], 23)[:90],
+                  np.tile(unit[:2], 45)])
+    yield ("tandem repeats (tied best cells)", q, np.array([48, 48, 48, 48], np.int32), t,
+           np.array([90, 90, 90, 77], np.int32), nt, 7.0, 2.0)
+
+    ql = rng.integers(20, 41, 4)
+    yield ("target holding its query twice",
+           *_sw_pairs(rng, ql, 2 * ql + 30, 5, N, copies=2), nt, 7.0, 2.0)
+    ql = rng.integers(20, 61, 8)
+    yield ("open == extend (3, 3)", *_sw_pairs(rng, ql, ql + 40, 5, N), nt, 3.0, 3.0)
+
+    ql = np.array([125, 126, 127, 128, 128, 4, 5, 3])
+    yield ("Lq 128 wide: one strip", *_sw_pairs(rng, ql, rng.integers(100, 200, 8), 5, N),
+           nt, 7.0, 2.0)
+    ql = np.array([257, 256, 255, 129, 128, 127, 5, 4, 3, 1])
+    yield ("Lq 257 wide: 1 to 3 strips", *_sw_pairs(rng, ql, ql + rng.integers(0, 60, 10),
+                                                   naa, X), aa, 12.0, 1.0)
+    if blastn_size:
+        contig = rng.integers(0, 4, SW_BLASTN_LQ).astype(np.int8)
+        q = np.stack([contig, contig])
+        t = np.stack([contig[9000:9300].copy(), rng.integers(0, 4, 300).astype(np.int8)])
+        t[0, 100:104] = (t[0, 100:104] + 1) % 4
+        t[0, 200:203] = N
+        yield ("blastn size: 16,500-column contig vs 300-base windows", q,
+               np.array([SW_BLASTN_LQ, SW_BLASTN_LQ], np.int32), t,
+               np.array([300, 297], np.int32), nt, 7.0, 2.0)
+
+
+def sw_tensors(case: SwCase, device) -> tuple:
+    """A case's (queries, q_lens, targets, t_lens, matrix) as tensors on
+    ``device`` and its gap costs."""
+    import torch
+
+    _, q, ql, t, tl, sub, go, ge = case
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                 for x in (q, ql, t, tl, sub)), go, ge
+
+
+def check_sw(device, blastn_size: bool = True) -> int:
+    """Every case of :func:`sw_cases` through ``ops.sw.sw_align`` on
+    ``device`` (a card: the kernel), held against ``sw_align_plain`` on the
+    same tensors: all nine fields bit for bit (the score as float32 bits).
+    Raises AssertionError on the first difference; returns the number of
+    cases."""
+    import torch
+
+    from ..ops import sw
+
+    n_cases = 0
+    for case in sw_cases(blastn_size=blastn_size):
+        args, go, ge = sw_tensors(case, device)
+        got = sw.sw_align(*args, go, ge)
+        want = sw.sw_align_plain(*args, go, ge)
+        for field, g, w in zip(sw.SwHits._fields, got, want):
+            if not torch.equal(g.contiguous().view(torch.int32),
+                               w.contiguous().view(torch.int32)):
+                raise AssertionError(f"sw_align {field} differs from its plain version: "
+                                     f"{case[0]}")
+        n_cases += 1
     return n_cases
