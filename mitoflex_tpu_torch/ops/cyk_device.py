@@ -2,11 +2,19 @@
 
 Port of mitoflex_tpu/ops/cyk_device.py (``cyk_banded_device``). The host
 numpy banded CYK (ops/cyk.py ``cyk_banded``) walks a few thousand states
-with a handful of small numpy calls each; this module runs the same DP as
-tensor steps over states in decreasing index (children always have larger
-indices in the Infernal numbering), on a banded deck ``[S, W, W]`` that
-stays on the device: only the ``[S]`` block maxima and their positions come
+with a handful of small numpy calls each; this module runs the same DP over
+states in decreasing index (children always have larger indices in the
+Infernal numbering), on a banded deck ``[S, W, W]`` that stays on the
+device: only the ``[S]`` block maxima and their first argmax cells come
 back to the host.
+
+On a card a call is one launch of the hand-written kernel of
+``csrc/cyk.cu`` (one thread block walks every state; at most
+``KERNEL_MAX_W`` columns a band). On the CPU it is the plain version
+``cyk_banded_plain``, a Python loop of tensor steps over the states (about
+18 eager operations a state). Both feed the same host pick
+(:func:`_pick`) from their ``[S]`` maxima and argmax cells, and both
+derive their band origins from :func:`_origins`.
 
 The contract is the reference's:
 
@@ -39,7 +47,10 @@ What differs from the reference's program is what its compiler forced:
   residue is clipped at -3e4 so that the prefix sums stay in float32 range
   (any such path is dead anyway). Prefix sums are order-dependent in the
   last bits, so scores agree with the reference within 1e-3 bits and
-  coordinates exactly.
+  coordinates exactly. The kernel sums them in the CPU's order (left to
+  right, each sum in float64 and rounded to float32, as ``torch.cumsum``
+  does on the CPU) and rounds every other operation as the plain version
+  does, so on the same inputs it gives the CPU's maxima bit for bit.
 
 The model's tables are built once per (model, mode, device) and parked on
 the device, keyed by the model's ``id`` with a weak reference as guard.
@@ -48,12 +59,13 @@ the device, keyed by the model's ``id`` with a weak reference as guard.
 from __future__ import annotations
 
 import weakref
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from ..device import resolve_device
 from ..models import cm as cm_models
 from ..models.cm import B, D, E, IL, IR, ML, MP, MR, S
@@ -63,7 +75,54 @@ _DEAD = -3.0e4          # clipped self-loop step for invalid residues
 
 _KIND_OF = {S: 0, D: 0, ML: 1, IL: 1, MR: 2, IR: 2, MP: 3}
 
+# the widest band the kernel takes (csrc/cyk.cu kMaxW): its block and the
+# two operands of a bifurcation, 3 W^2 float32, in one SM's shared memory
+KERNEL_MAX_W = 128
+# int32 words a scanned state takes in the kernel's step table
+# (csrc/cyk.cu kStepWords); the fields are the _W_* offsets below
+STEP_WORDS = 20
+MAX_KIDS = 6
+_W_V, _W_KIND, _W_NKIDS, _W_LEFT, _W_RIGHT, _W_KID, _W_T = 0, 1, 2, 3, 4, 5, 11
+_W_SELF, _W_END, _W_FLAGS = 17, 18, 19
+HAS_SELF, HAS_END = 1, 2
+
 _STATIC: dict = {}
+
+
+def _step_table(steps) -> np.ndarray:
+    """The kernel's step table [n_scan, STEP_WORDS] int32, one row a
+    scanned state in scan order: state, kind (-1 for B), child count, the B
+    state's two children, up to MAX_KIDS (child, transition) pairs, the
+    self-loop and local-end scores (NEG where absent) and the HAS_SELF /
+    HAS_END flags. Scores are float32 bits; each is the float32 value the
+    plain version's tensor operations round it to."""
+    table = np.zeros((len(steps), STEP_WORDS), np.int32)
+    fbits = table.view(np.float32)
+    fbits[:, _W_T: _W_T + MAX_KIDS] = NEG
+    fbits[:, _W_SELF] = NEG
+    fbits[:, _W_END] = NEG
+    for t, step in enumerate(steps):
+        v, kind = step[0], step[1]
+        table[t, _W_V], table[t, _W_KIND] = v, kind
+        if kind < 0:
+            table[t, _W_NKIDS] = 2
+            table[t, _W_LEFT], table[t, _W_RIGHT] = step[2], step[3]
+            continue
+        kids, self_t, end_sc = step[2], step[3], step[4]
+        if len(kids) > MAX_KIDS:
+            raise ValueError(f"state {v} has {len(kids)} children; the kernel takes "
+                             f"{MAX_KIDS}")
+        table[t, _W_NKIDS] = len(kids)
+        for k, (c, tr) in enumerate(kids):
+            table[t, _W_KID + k] = c
+            fbits[t, _W_T + k] = tr
+        if self_t is not None:
+            fbits[t, _W_SELF] = self_t
+            table[t, _W_FLAGS] |= HAS_SELF
+        if end_sc is not None:
+            fbits[t, _W_END] = end_sc
+            table[t, _W_FLAGS] |= HAS_END
+    return table
 
 
 def _model_static(model, local: bool, dev: torch.device) -> dict:
@@ -118,9 +177,10 @@ def _model_static(model, local: bool, dev: torch.device) -> dict:
     single5[:, :4] = model.emit_single
     pair5 = np.full((Sn, 5, 5), NEG, np.float32)
     pair5[:, :4, :4] = model.emit_pair.reshape(Sn, 4, 4)
+    e_states = np.flatnonzero(stype == E).astype(np.int32)
     static = dict(
         steps=steps, cl=cl, cr=cr, lc=lc, spans=spans,
-        e_states=torch.from_numpy(np.flatnonzero(stype == E)).to(dev),
+        e_states=torch.from_numpy(e_states).to(dev),
         b_states=np.asarray(b_states, np.int64),
         b_left=np.asarray(b_left, np.int64),
         b_right=np.asarray(b_right, np.int64),
@@ -140,26 +200,11 @@ def _overlap(d: int, W: int) -> Tuple[int, int]:
     return max(0, -d), min(W, W - d)
 
 
-def cyk_banded_device(
-    model: cm_models.CovarianceModel,
-    window: np.ndarray,
-    anchor: Tuple[int, int, int, int],
-    slack: int = 48,
-    local: bool = False,
-    device=None,
-) -> Optional[CykAlignment]:
-    """Counterpart of ops/cyk.py ``cyk_banded`` on ``device`` (same anchor /
-    slack / local semantics, scores and coordinates only). Bands are
-    uniform and clamped inside the window, so they always contain the numpy
-    kernel's bands: score(numpy banded) <= score(this) <= score(exact)."""
-    dev = resolve_device(device)
-    window = np.asarray(window)
-    L = len(window)
+def _origins(st: dict, L: int, anchor, slack: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Every state's band origins (o_i, o_j) [S] int64, clamped into
+    ``[0, L + 1 - W]``; ValueError when a bifurcation's band offset reaches
+    the block width."""
     W = 2 * slack + 2
-    st = _model_static(model, local, dev)
-    lc = st["lc"]
-    Sn = model.n_states
-
     w0, w1, p0, p1 = anchor
     rate = (w1 - w0) / max(p1 - p0, 1)
     omax = max(0, L + 1 - W)
@@ -180,13 +225,87 @@ def cyk_banded_device(
         )
         if worst >= W:
             raise ValueError("bifurcation band offset exceeds width")
+    return o_i, o_j
 
-    f32 = torch.float32
-    # the window's codes with one leading pad (so that j - 1 >= 0) and pads
-    # after it; 4 marks an invalid or absent residue
+
+def _padded_codes(window: np.ndarray, W: int) -> np.ndarray:
+    """The window's codes with one leading pad (so that j - 1 >= 0) and pads
+    after it; 4 marks an invalid or absent residue."""
+    L = len(window)
     wpad = np.full(L + W + 2, 4, np.int64)
     wpad[1: L + 1] = np.minimum(window, 4)
-    wpad_t = torch.from_numpy(wpad).to(dev)
+    return wpad
+
+
+class BandedMaxima(NamedTuple):
+    """A banded CYK's raw result before the host pick."""
+    m: np.ndarray        # [S] float32, each state's block maximum
+    a: np.ndarray        # [S] int64, its first argmax cell r * W + c
+    o_i: np.ndarray      # [S] int64 band origins
+    o_j: np.ndarray
+
+
+def _pick(model, st: dict, res: BandedMaxima, slack: int, L: int, anchor, local: bool
+          ) -> Optional[CykAlignment]:
+    """The host pick from the per-state block maxima and their first argmax
+    cells (flat ``r * W + c``): the best begin, its window coordinates, and
+    the model span with the truncation clamp."""
+    Sn = model.n_states
+    m, a, o_i, o_j = res
+    W = 2 * slack + 2
+    lc = st["lc"]
+    if local:
+        begins = lc.begin_sc.copy()
+    else:
+        begins = np.full(Sn, NEG, np.float32)
+        begins[0] = 0.0
+    tot = m + begins
+    bv = int(np.argmax(tot))
+    best = float(tot[bv])
+    ri, rj = divmod(int(a[bv]), W)
+    bi = int(o_i[bv]) + ri
+    bj = int(o_j[bv]) + rj
+    if best < NEG / 2 or bj <= bi:
+        return None
+    if local:
+        bspan = st["spans"][int(model.node_of[bv])]
+        mdl_from, mdl_to = bspan[0] + 1, bspan[1]
+        # same truncation clamp as the numpy kernel: when the hit runs
+        # into the window's right edge the EL state absorbed the model
+        # suffix, so cap coverage at the p7 envelope's hmm_to
+        if bj >= L and mdl_to > anchor[3] + 1:
+            mdl_to = anchor[3] + 1
+    else:
+        mdl_from, mdl_to = 1, model.clen
+    return CykAlignment(
+        score=best, seq_from=bi, seq_to=bj - 1,
+        aligned_seq="", aligned_fold="",
+        mdl_from=mdl_from, mdl_to=mdl_to, residue_of_pos={},
+    )
+
+
+def cyk_banded_maxima_plain(
+    model: cm_models.CovarianceModel,
+    window: np.ndarray,
+    anchor: Tuple[int, int, int, int],
+    slack: int = 48,
+    local: bool = False,
+    device=None,
+) -> BandedMaxima:
+    """The plain version's DP: a Python loop of tensor steps over the
+    states on ``device``; returns the block maxima, argmax cells and band
+    origins."""
+    dev = resolve_device(device)
+    window = np.asarray(window)
+    L = len(window)
+    W = 2 * slack + 2
+    st = _model_static(model, local, dev)
+    lc = st["lc"]
+    Sn = model.n_states
+    o_i, o_j = _origins(st, L, anchor, slack)
+
+    f32 = torch.float32
+    wpad_t = torch.from_numpy(_padded_codes(window, W)).to(dev)
     esc = st["single5"][:, wpad_t]                     # [S, L + W + 2]
     pair5 = st["pair5"]
     el_selfsc = float(lc.el_selfsc) if local else 0.0
@@ -281,32 +400,131 @@ def cyk_banded_device(
     flat = deck.reshape(Sn, W * W)
     m = flat.amax(dim=1).cpu().numpy()
     a = flat.argmax(dim=1).cpu().numpy()   # the first maximum of each block
+    return BandedMaxima(m, a, o_i, o_j)
 
-    if local:
-        begins = lc.begin_sc.copy()
-    else:
-        begins = np.full(Sn, NEG, np.float32)
-        begins[0] = 0.0
-    tot = m + begins
-    bv = int(np.argmax(tot))
-    best = float(tot[bv])
-    ri, rj = divmod(int(a[bv]), W)
-    bi = int(o_i[bv]) + ri
-    bj = int(o_j[bv]) + rj
-    if best < NEG / 2 or bj <= bi:
-        return None
-    if local:
-        bspan = st["spans"][int(model.node_of[bv])]
-        mdl_from, mdl_to = bspan[0] + 1, bspan[1]
-        # same truncation clamp as the numpy kernel: when the hit runs
-        # into the window's right edge the EL state absorbed the model
-        # suffix, so cap coverage at the p7 envelope's hmm_to
-        if bj >= L and mdl_to > anchor[3] + 1:
-            mdl_to = anchor[3] + 1
-    else:
-        mdl_from, mdl_to = 1, model.clen
-    return CykAlignment(
-        score=best, seq_from=bi, seq_to=bj - 1,
-        aligned_seq="", aligned_fold="",
-        mdl_from=mdl_from, mdl_to=mdl_to, residue_of_pos={},
-    )
+
+def cyk_banded_plain(
+    model: cm_models.CovarianceModel,
+    window: np.ndarray,
+    anchor: Tuple[int, int, int, int],
+    slack: int = 48,
+    local: bool = False,
+    device=None,
+) -> Optional[CykAlignment]:
+    """The plain version of :func:`cyk_banded_device` on ``device``: eager
+    tensor steps, one state at a time. CPU calls take it; on a card it is
+    the yardstick the kernel is held against."""
+    dev = resolve_device(device)
+    window = np.asarray(window)
+    return _pick(model, _model_static(model, local, dev),
+                 cyk_banded_maxima_plain(model, window, anchor, slack, local, dev),
+                 slack, len(window), anchor, local)
+
+
+class KernelInputs(NamedTuple):
+    """What one launch of the kernel of ``csrc/cyk.cu`` reads."""
+    step_table: torch.Tensor   # [n_scan, STEP_WORDS] int32, on the device
+    e_states: torch.Tensor     # [n_E] int32
+    single5: torch.Tensor      # [S, 5] float32
+    pair5: torch.Tensor        # [S, 25] float32
+    geo: torch.Tensor          # [2 S + L + W + 2] int32: o_i, o_j, padded codes
+    n_states: int
+    L: int
+    W: int
+    el_selfsc: float           # float32 value; 0.0 in glocal mode
+    o_i: np.ndarray            # [S] int64 band origins, on the host
+    o_j: np.ndarray
+
+
+def check_kernel_width(slack: int) -> int:
+    """The band width W = 2 * slack + 2; ValueError when the kernel cannot
+    take it (more than KERNEL_MAX_W, or a negative slack)."""
+    W = 2 * slack + 2
+    if slack < 0 or W > KERNEL_MAX_W:
+        raise ValueError(f"cyk_banded_device: band width {W} (slack {slack}) outside the "
+                         f"kernel's limit of 2 to {KERNEL_MAX_W} (slack 0 to "
+                         f"{(KERNEL_MAX_W - 2) // 2})")
+    return W
+
+
+def kernel_inputs(
+    model: cm_models.CovarianceModel,
+    window: np.ndarray,
+    anchor: Tuple[int, int, int, int],
+    slack: int = 48,
+    local: bool = False,
+    device=None,
+) -> KernelInputs:
+    """The kernel's inputs for one call on ``device``: the model's cached
+    tables and this call's origins and codes, copied over in one transfer.
+    Raises ValueError as :func:`check_kernel_width` and the band check do."""
+    dev = resolve_device(device)
+    W = check_kernel_width(slack)
+    window = np.asarray(window)
+    L = len(window)
+    st = _model_static(model, local, dev)
+    o_i, o_j = _origins(st, L, anchor, slack)
+    if "step_table" not in st:          # built at the first kernel call of a model
+        st["step_table"] = torch.from_numpy(_step_table(st["steps"])).to(dev)
+    geo = np.concatenate([o_i, o_j, _padded_codes(window, W)]).astype(np.int32)
+    el = float(np.float32(st["lc"].el_selfsc)) if local else 0.0
+    return KernelInputs(st["step_table"], st["e_states"], st["single5"], st["pair5"],
+                        torch.from_numpy(geo).to(dev), model.n_states, L, W, el, o_i, o_j)
+
+
+def cyk_banded_maxima(
+    model: cm_models.CovarianceModel,
+    window: np.ndarray,
+    anchor: Tuple[int, int, int, int],
+    slack: int = 48,
+    local: bool = False,
+    device=None,
+) -> BandedMaxima:
+    """The block maxima, argmax cells and origins of one banded CYK: on a
+    card one launch of the kernel of ``csrc/cyk.cu`` (deck, maxima and
+    argmax cells in buffers allocated here; one copy back), on the CPU
+    :func:`cyk_banded_maxima_plain`. Any other device raises ValueError."""
+    dev = resolve_device(device)        # the CPU or a card; raises on any other
+    if dev.type == "cpu":
+        return cyk_banded_maxima_plain(model, window, anchor, slack, local, dev)
+    x = kernel_inputs(model, window, anchor, slack, local, dev)
+    dev = x.geo.device          # with its index, as kernels.launch wants it
+    S, W = x.n_states, x.W
+    deck = torch.empty((S, W, W), dtype=torch.float32, device=dev)
+    out = torch.empty((2, S), dtype=torch.int32, device=dev)
+    err = kernels.launch(
+        dev, kernels.library().mfx_cyk_banded, x.step_table.data_ptr(),
+        x.step_table.shape[0], x.e_states.data_ptr(), x.e_states.shape[0],
+        x.single5.data_ptr(), x.pair5.data_ptr(), x.geo.data_ptr(), S, x.L, W,
+        x.el_selfsc, deck.data_ptr(), out.data_ptr())
+    if err:
+        kernels.check(err, "cyk_banded_device")
+    cyk_banded_device.launches += 1
+    host = out.cpu().numpy()
+    return BandedMaxima(host[0].view(np.float32), host[1].astype(np.int64), x.o_i, x.o_j)
+
+
+def cyk_banded_device(
+    model: cm_models.CovarianceModel,
+    window: np.ndarray,
+    anchor: Tuple[int, int, int, int],
+    slack: int = 48,
+    local: bool = False,
+    device=None,
+) -> Optional[CykAlignment]:
+    """Counterpart of ops/cyk.py ``cyk_banded`` on ``device`` (same anchor /
+    slack / local semantics, scores and coordinates only). Bands are
+    uniform and clamped inside the window, so they always contain the numpy
+    kernel's bands: score(numpy banded) <= score(this) <= score(exact).
+    On a card: one launch of the kernel of ``csrc/cyk.cu`` (slack at most
+    ``(KERNEL_MAX_W - 2) // 2``); on the CPU: the plain version's DP, as
+    :func:`cyk_banded_plain`; any other device raises ValueError."""
+    dev = resolve_device(device)
+    window = np.asarray(window)
+    return _pick(model, _model_static(model, local, dev),
+                 cyk_banded_maxima(model, window, anchor, slack, local, dev),
+                 slack, len(window), anchor, local)
+
+
+# kernel launches since the last reset (a plain counter, never reset here)
+cyk_banded_device.launches = 0

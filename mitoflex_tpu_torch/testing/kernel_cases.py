@@ -13,13 +13,16 @@ through the wrappers of ``ops/psort.py`` on a device; :func:`filter_cases`
 and :func:`check_filter` do the same for the read filter of ``ops/filter.py``
 (row widths on both of its paths, edge lengths, odd codes and valves), and
 :func:`viterbi_cases` and :func:`check_viterbi` for the two Viterbi passes of
-``ops/phmm.py``, and :func:`sw_cases` and :func:`check_sw` for the
-Smith-Waterman of ``ops/sw.py``.
+``ops/phmm.py``, :func:`sw_cases` and :func:`check_sw` for the
+Smith-Waterman of ``ops/sw.py``, and :func:`cyk_cases` and :func:`check_cyk`
+for the banded CYK of ``ops/cyk_device.py``.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+import functools
+import io
+from typing import Iterator, NamedTuple, Tuple
 
 import numpy as np
 
@@ -532,3 +535,157 @@ def check_sw(device, blastn_size: bool = True) -> int:
                                      f"{case[0]}")
         n_cases += 1
     return n_cases
+
+
+# ------------------------------------------------------- banded CYK cases
+# bits: float32 prefix sums in another order (the JAX package's, the plain
+# version's on a card) differ in their last bits; see cyk_score_tol
+CYK_SCORE_TOL = 1e-3
+CYK_SEED = 2029
+# model key -> CLEN (None: the tRNA-size cloverleaf); built in this order from
+# one generator, the golden-size model last
+CYK_MODELS = (("trna", None), ("rrna_180", 180), ("rrna_950", 950))
+
+
+class CykCase(NamedTuple):
+    name: str
+    model_key: str
+    window: np.ndarray       # int codes
+    anchor: Tuple[int, int, int, int]
+    slack: int
+    local: bool
+
+
+def cyk_fixtures(golden_size: bool = True, seed: int = CYK_SEED) -> dict:
+    """model key -> FixtureCM (testing/cm_fixture.py), made from ``seed``;
+    without ``golden_size`` the CLEN-950 model is left out."""
+    from . import cm_fixture
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, clen in CYK_MODELS:
+        if clen == 950 and not golden_size:
+            break
+        out[key] = (cm_fixture.trna_cm(f"cyk_{key}", rng, "GAA") if clen is None
+                    else cm_fixture.rrna_cm(f"cyk_{key}", rng, clen))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def cyk_model(key: str):
+    """The port's CovarianceModel of :func:`cyk_fixtures`' model ``key``,
+    parsed from the fixture's Infernal text; one object a key, so that the
+    model tables are built once."""
+    from ..models import cm as cm_models
+
+    fx = cyk_fixtures(golden_size=key == CYK_MODELS[-1][0])[key]
+    return cm_models.parse_cm_text(io.StringIO(fx.text))[0]
+
+
+def _cyk_window(rng: np.random.Generator, cons: str, kind: str, pad: int
+                ) -> Tuple[np.ndarray, Tuple[int, int, int, int]]:
+    """(codes, anchor) of one window kind around the consensus ``cons``."""
+    from ..io import encoding
+
+    def flank(k):
+        return "".join("ACGT"[int(i)] for i in rng.integers(0, 4, k))
+
+    n = len(cons)
+    body, w0, span, p1 = cons, pad, n, n - 1
+    if kind == "mutated":
+        arr = list(cons)
+        for i in rng.integers(0, n, max(3, n // 20)):
+            arr[int(i)] = "ACGT"[int(rng.integers(0, 4))]
+        del arr[n // 3]                              # one deletion
+        body, span = "".join(arr), n - 1
+    elif kind == "with_n":
+        body = cons[:10] + "N" + cons[11: n // 2] + "NN" + cons[n // 2 + 2:]
+    elif kind == "twice":
+        # the anchor half-way between the copies; the bands must reach both
+        body, w0 = cons + cons, pad + n // 2
+    elif kind == "junk":
+        body = flank(n)
+    seq = flank(pad) + body + flank(pad)
+    if kind == "all_n":
+        seq = "N" * len(seq)
+    if kind == "truncated":
+        # the model's last tenth runs off the window's right edge
+        cut = n // 10
+        seq = seq[: pad + n - cut]
+        span, p1 = n - cut, n - 1 - cut
+    return np.asarray(encoding.encode(seq)), (w0, w0 + span - 1, 0, p1)
+
+
+def cyk_cases(golden_size: bool = True, seed: int = CYK_SEED) -> Iterator[CykCase]:
+    """Seeded banded-CYK calls, each in glocal and local mode: the tRNA-size
+    model at slack 8, 12 and 48 and ``rrna_cm`` at CLEN 180 (and, with
+    ``golden_size``, at CLEN 950, the golden run's size) on the planted
+    consensus, a mutated copy with a deletion, the consensus twice with
+    bands wide enough for both copies (two equal parses tie), a window with
+    N residues, a window that the model runs off at the right edge (the
+    ``mdl_to`` truncation clamp), a window shorter than W (every origin
+    clamps to 0), a random junk window and a window of N only (no glocal
+    parse)."""
+    rng = np.random.default_rng(seed + 1)
+    fixtures = cyk_fixtures(golden_size, seed)
+    specs = (  # model key, window kind, slack, flank length
+        ("trna", "planted", 8, 20), ("trna", "planted", 12, 20), ("trna", "mutated", 12, 20),
+        ("trna", "with_n", 12, 20), ("trna", "truncated", 8, 20), ("trna", "mutated", 48, 30),
+        ("trna", "twice", 48, 20), ("trna", "short", 48, 10), ("trna", "junk", 12, 20),
+        ("trna", "all_n", 12, 20),
+        ("rrna_180", "planted", 48, 40), ("rrna_180", "mutated", 48, 40),
+        ("rrna_180", "with_n", 12, 40), ("rrna_180", "truncated", 48, 40),
+        ("rrna_180", "junk", 48, 40),
+        ("rrna_950", "planted", 48, 64), ("rrna_950", "mutated", 48, 64),
+    )
+    for key, kind, slack, pad in specs:
+        if key not in fixtures:
+            continue
+        window, anchor = _cyk_window(rng, fixtures[key].consensus, kind, pad)
+        for local in (False, True):
+            mode = "local" if local else "glocal"
+            yield CykCase(f"{key} {kind} slack {slack} {mode}", key, window, anchor, slack,
+                          local)
+
+
+def cyk_score_tol(want) -> np.ndarray:
+    """The score tolerance at ``want`` (bits): CYK_SCORE_TOL, or 4 float32
+    units in the last place of the score where that is more. A parse that
+    takes a clipped self-loop step (an N inside an IL / IR band) scores
+    below -3e4, where one unit is 0.004 bits and two summation orders of
+    the same prefix sums may differ by several."""
+    mag = np.abs(np.asarray(want, np.float32))
+    return np.maximum(CYK_SCORE_TOL, 4 * np.spacing(mag).astype(np.float64))
+
+
+def check_cyk(got, want, what: str, cells: bool = True) -> float:
+    """Hold one banded CYK result against another: two alignments (or two
+    ``None``) with equal ``seq_from``, ``seq_to``, ``mdl_from`` and
+    ``mdl_to``, or two ``BandedMaxima`` with equal origins and (with
+    ``cells``) equal argmax cells; scores (maxima) within
+    :func:`cyk_score_tol`. Returns the largest score error among live
+    scores (above NEG / 2); AssertionError on a difference."""
+    from ..ops import cyk_device
+
+    if isinstance(want, cyk_device.BandedMaxima):
+        for f in ("a", "o_i", "o_j")[0 if cells else 1:]:
+            if not np.array_equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"{what}: {f} differs")
+        g, w = got.m.astype(np.float64), want.m.astype(np.float64)
+    elif got is None or want is None:
+        if got is not None or want is not None:
+            raise AssertionError(f"{what}: one side has no parse: {got} vs {want}")
+        return 0.0
+    else:
+        coords = ("seq_from", "seq_to", "mdl_from", "mdl_to")
+        if tuple(getattr(got, f) for f in coords) != tuple(getattr(want, f) for f in coords):
+            raise AssertionError(f"{what}: coordinates differ: {got} vs {want}")
+        g, w = np.array([got.score], np.float64), np.array([want.score], np.float64)
+    err = np.abs(g - w)
+    bad = ~(err <= cyk_score_tol(w))
+    if bad.any():
+        i = int(np.flatnonzero(bad)[0])
+        raise AssertionError(f"{what}: score {g[i]} against {w[i]}, error {err[i]} over "
+                             f"{cyk_score_tol(w[i])}")
+    live = w > -5e29
+    return float(err[live].max()) if live.any() else 0.0
