@@ -44,12 +44,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    rRNAs whose covariance models, CLEN 72, 950 and 1100, the CM fixture
    writes) at 400x plus two 8 kb nuclear decoys at 12x, 150 bp pairs,
    insert 300, 1% errors, from --seed, through the port's
-   PipelineContext(device="cuda") and ``run_all``. All eight kernels'
-   launch counters (K1 to K4, the two Viterbi passes, Smith-Waterman and
-   the banded CYK) are zeroed just before and read just after; each must be
-   > 0, and the plain Viterbi, SW and CYK loops must see no card. Every
-   Viterbi call's inputs are kept for phase 13, every SW call's for phase 14
-   and every banded CYK call's for phase 15, and every ``nhmmer_search``
+   PipelineContext(device="cuda") and ``run_all``. All nine kernels'
+   launch counters (K1 to K4, the two Viterbi passes, Smith-Waterman, the
+   banded CYK and genewise) are zeroed just before and read just after;
+   each must be > 0, and the plain Viterbi, SW, CYK and genewise loops must
+   see no card. Every Viterbi call's inputs are kept for phase 13, every SW
+   call's for phase 14, every banded CYK call's for phase 15 and every
+   genewise call's for phase 16 (its wall and launches a call printed),
+   and every ``nhmmer_search``
    call is timed by the stage that made it: under annotate this splits the
    tRNA and rRNA walls into the p7 filter scan and the CYK refinement (the
    banded CYK calls timed apart). The SW calls and blast's ``_batched_sw``
@@ -85,11 +87,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    contigs, the picked FASTA, ``locs.json``, both annotated FASTAs,
    ``wise.csv`` and the seven text track files byte-identical,
    ``circos.conf`` once each run's directory is replaced.
-9. ``genewise_align`` on the card against the CPU on a seeded batch
-   (frameshifts, stops, a window that holds its gene twice): coordinates
-   and frameshift counts equal, scores within 1e-4; timed (host clock
-   around a call that ends in a synchronise). The banded CYK, which this
-   phase held until its kernel came, is phase 15's.
+9. ``genewise_align`` (the kernel of phase 16) on the card against the
+   CPU on a seeded batch (frameshifts, stops, a window that holds its gene
+   twice): coordinates and frameshift counts equal, scores within 1e-4;
+   timed (host clock around a call that ends in a synchronise) with its
+   ``cudaLaunchKernel`` calls counted. The banded CYK, which this phase
+   held until its kernel came, is phase 15's.
 10. The rest of the command line on phase 8's card run: ``visualize``
    alone on the picked FASTA with ``--locs`` (the same track files again;
    without matplotlib it must exit 2 naming it and write nothing),
@@ -116,8 +119,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    inputs (filter, partitioned counting with keys whose first word is at
    least 2**31 and each shard inside its key range, mapper, SW, genewise,
    both Viterbi passes: coordinates equal, scores within 1e-4; both Viterbi
-   kernels and the SW kernel launched, and on the small set's sharded
-   findmitoscaf and annotate too, with the CYK kernel); and
+   kernels, the SW and the genewise kernel launched, and on the small set's
+   sharded findmitoscaf and annotate too, with the CYK kernel); and
    ``init_distributed`` with NCCL at world size 1 through a file://
    rendezvous, one all_reduce, torn down. Mesh walls are printed beside
    the single-device walls of this run.
@@ -157,13 +160,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    block written and every child block read once at 3.35 TB/s, or the
    float32 operations at 67 TFLOP/s where that is larger); a tRNA-size
    call's ``cudaLaunchKernel`` calls counted.
+16. The genewise kernel of mitoflex_tpu_torch/csrc/genewise.cu (run right
+   after phase 15) on every seeded case of ``kernel_cases.genewise_cases``
+   (frameshifts of every step, stops, N codons, both penalty sets, a gene
+   planted twice, lengths 0 to 2, odd codes, 1 to 3 strips, a 600-aa
+   protein in a 2000-base window) and on the golden run's calls: all six
+   fields bit-equal to the plain loop on the same card tensors and on the
+   CPU; the real-size case and each golden call timed (median and spread of
+   at least 5 calls) beside the plain loop on the card and the operations
+   bound; one wrapper call of each golden call must make exactly one
+   ``cudaLaunchKernel``.
 
 Kernel times are medians of CUDA-event-timed repeats after a warm-up; one
 repeat is one call of the kernel's wrapper between two events, so it holds
 the wrapper's host time before the launch too. K1 to K4's bound is the
 bytes of their inputs and outputs, moved once at the H100's 3.35 TB/s; the
-Viterbi and SW kernels' is their operations (phases 13 and 14), the CYK
-kernel's its blocks' bytes (phase 15). The last two lines are one JSON object of per-kernel results and then
+Viterbi, SW and genewise kernels' is their operations (phases 13, 14 and
+16), the CYK kernel's its blocks' bytes (phase 15). The last two lines are one JSON object of per-kernel results and then
 {"ok": true, "device": {...}}; the card's name and power limit (from
 nvidia-smi) are printed before them. Without a CUDA device the script exits
 non-zero before any result.
@@ -204,6 +217,12 @@ def _nvidia_smi() -> str:
 
 def _cuda_ms(fn, repeats: int = REPEATS) -> float:
     """Median milliseconds of fn() on the current stream, after warm-up."""
+    return float(np.median(_cuda_times(fn, repeats)))
+
+
+def _cuda_times(fn, repeats: int = REPEATS) -> list:
+    """Milliseconds of each of ``repeats`` calls of fn() on the current
+    stream, each between two events, after warm-up."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -216,7 +235,7 @@ def _cuda_ms(fn, repeats: int = REPEATS) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
 
 
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
@@ -717,12 +736,12 @@ def _slice_config(tmp: str, workname: str, golden: bool, fake):
 VITERBI_KERNELS = ("viterbi_scores_multi", "viterbi_scan")
 # the search kernels: the two Viterbi passes and Smith-Waterman
 SEARCH_KERNELS = VITERBI_KERNELS + ("sw_align",)
-# and annotate's rRNA banded CYK
-ANNOTATE_KERNELS = SEARCH_KERNELS + ("cyk_banded_device",)
+# and annotate's rRNA banded CYK and genewise
+ANNOTATE_KERNELS = SEARCH_KERNELS + ("cyk_banded_device", "genewise_align")
 
 
 def _launch_counters():
-    from mitoflex_tpu_torch.ops import cyk_device, phmm, psort, sw
+    from mitoflex_tpu_torch.ops import cyk_device, genewise, phmm, psort, sw
     from mitoflex_tpu_torch.ops import filter as F
 
     return {"filter_reads": F.filter_reads, "merge_sorted_runs": psort.merge_sorted_runs,
@@ -730,12 +749,13 @@ def _launch_counters():
             "sort_words2": psort.sort_words2,
             "viterbi_scores_multi": phmm.viterbi_scores_multi,
             "viterbi_scan": phmm.viterbi_scan, "sw_align": sw.sw_align,
-            "cyk_banded_device": cyk_device.cyk_banded_device}
+            "cyk_banded_device": cyk_device.cyk_banded_device,
+            "genewise_align": genewise.genewise_align}
 
 
 def _sort_launches(launches: dict) -> dict:
     """K1 to K4's counts: the paths without a search (filter and assemble)
-    launch no Viterbi, Smith-Waterman or CYK kernel."""
+    launch no Viterbi, Smith-Waterman, CYK or genewise kernel."""
     return {k: v for k, v in launches.items() if k not in ANNOTATE_KERNELS}
 
 
@@ -787,7 +807,7 @@ def run_golden_slice(seed: int, tmp: str):
     from mitoflex_tpu_torch import pipeline
     from mitoflex_tpu_torch.io import fasta
     from mitoflex_tpu_torch.models import blast, nhmmer
-    from mitoflex_tpu_torch.ops import cyk_device, dbg, mapper, phmm, psort, sw
+    from mitoflex_tpu_torch.ops import cyk_device, dbg, genewise, mapper, phmm, psort, sw
     from mitoflex_tpu_torch.stages import visualize as vis
     from mitoflex_tpu_torch.testing import profile_fixture, synth
 
@@ -884,6 +904,20 @@ def run_golden_slice(seed: int, tmp: str):
             return fn(model, window, anchor, slack, local, device)
         return run
 
+    # every genewise call's inputs and wall, for phase 16; its plain loop
+    # must see no card tensor
+    real_gw, real_gw_plain = genewise.genewise_align, genewise.genewise_align_plain
+    genewise_calls, genewise_s = [], []
+
+    def kept_genewise(*a, **k):
+        genewise_calls.append((tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                                     for x in a), dict(k)))
+        t0 = time.perf_counter()
+        out = real_gw(*a, **k)
+        torch.cuda.synchronize()
+        genewise_s.append(time.perf_counter() - t0)
+        return out
+
     # nhmmer_search's walls by the stage that called it, and each call under
     # annotate with its models (the tRNA and rRNA searches' p7 filter scans)
     real_nhmmer = nhmmer.nhmmer_search
@@ -940,7 +974,8 @@ def run_golden_slice(seed: int, tmp: str):
     # the recording function while this run lasts
     recorders = {n: kept_viterbi(n) for n in VITERBI_KERNELS}
     counters = {**_launch_counters(), "merge_sorted_runs": kept_merge, **recorders,
-                "sw_align": kept_sw, "cyk_banded_device": kept_cyk}
+                "sw_align": kept_sw, "cyk_banded_device": kept_cyk,
+                "genewise_align": kept_genewise}
     ctx = pipeline.PipelineContext.create(cfg, device="cuda")
     dbg.graph_unitig_pass = kept_graph_pass
     psort.merge_sorted_runs = kept_merge
@@ -955,6 +990,8 @@ def run_golden_slice(seed: int, tmp: str):
     cyk_device.cyk_banded_device = kept_cyk
     for n, fn in real_cyk_plain.items():
         setattr(cyk_device, n, watched_cyk_plain(n, fn))
+    genewise.genewise_align = kept_genewise
+    genewise.genewise_align_plain = watched_plain("genewise_align_plain", real_gw_plain)
     for name in stages:
         setattr(pipeline, name, timed_stage(name))
     try:
@@ -986,6 +1023,7 @@ def run_golden_slice(seed: int, tmp: str):
         cyk_device.cyk_banded_device = real_cyk
         for n, fn in real_cyk_plain.items():
             setattr(cyk_device, n, fn)
+        genewise.genewise_align, genewise.genewise_align_plain = real_gw, real_gw_plain
         for name in stages:
             setattr(pipeline, name, real_stages[name])
     filter_s, assemble_s, find_s, annotate_s, visualize_s = (stage_s[n] for n in stages)
@@ -1012,9 +1050,16 @@ def run_golden_slice(seed: int, tmp: str):
          f"which the sw_align calls {tbl_sw:.4f} s, the rest padding and copies) + host "
          f"work (seed join, windows, hit table) {tbl - tbl_batched:.3f} s; findmitoscaf's "
          f"_batched_sw {batched_s.get('run_findmitoscaf', 0.0):.4f} s")
+    gw_shapes = [f"{a[0].shape[0]} hits x Lq {a[0].shape[1]} x T {a[2].shape[1]}"
+                 for a, _ in genewise_calls]
+    _log(f"genewise: {len(genewise_calls)} genewise_align calls ({', '.join(gw_shapes)}), "
+         f"{sum(genewise_s):.4f} s of annotate's genewise wall {aw['genewise']:.3f} s (the "
+         f"rest: windows, translation, copies); genewise kernel launches "
+         f"{launches['genewise_align']}, "
+         f"{launches['genewise_align'] / max(len(genewise_calls), 1):g} a call")
     if plain_on_card:
-        raise AssertionError(f"golden all: the plain Viterbi, SW or CYK loops ran on the "
-                             f"card: {sorted(set(plain_on_card))}")
+        raise AssertionError(f"golden all: the plain Viterbi, SW, CYK or genewise loops ran "
+                             f"on the card: {sorted(set(plain_on_card))}")
     _log(f"all walls: run_all {all_s:.3f} s"
          + ("" if have_mpl else " (without visualize)")
          + f"; filter {filter_s:.3f} s ({res.reads_kept}/{res.reads_in} "
@@ -1075,7 +1120,7 @@ def run_golden_slice(seed: int, tmp: str):
               "assembled": stage_out["run_assemble"], "filter_s": filter_s,
               "assemble_s": assemble_s, "viterbi_calls": viterbi_calls,
               "nhmmer_calls": nhmmer_calls, "sw_calls": sw_calls,
-              "cyk_calls": [c[:-1] for c in cyk_calls]}
+              "cyk_calls": [c[:-1] for c in cyk_calls], "genewise_calls": genewise_calls}
     return launches, passes, merges, golden
 
 
@@ -1563,13 +1608,12 @@ def check_genewise_vs_cpu(dev) -> None:
             or float(want.score.min()) < 100:
         raise AssertionError(f"genewise_align: score error {err}, frameshifts "
                              f"{want.n_shift.tolist()}")
-    ms, launches = _wall_ms_and_launches(lambda: run(dev), count_launches=False)
+    ms, launches = _wall_ms_and_launches(lambda: run(dev))
     _log(f"genewise_align on the card against the CPU: {B} hits x {qa.shape[1]} aa x "
          f"{int(tl.max())} nt (frameshifts +1, -1, +2, in-frame stops, a gene planted "
          f"twice): coordinates and frameshift counts equal, scores within "
-         f"{GENEWISE_SCORE_TOL} (max {err:.2e}); {ms:.1f} ms a call, eager launches a "
-         f"call {launches if launches else 'not counted in this run'} "
-         f"({int(tl.max())} steps)")
+         f"{GENEWISE_SCORE_TOL} (max {err:.2e}); {ms:.2f} ms a call (the copies to the card "
+         f"included), {launches} cudaLaunchKernel a call")
 
 
 # ------------------------------------------------------- Viterbi kernels
@@ -1964,6 +2008,114 @@ def check_cyk_kernel(dev, calls: list) -> dict:
     return out
 
 
+# -------------------------------------------------------- genewise kernel
+# operations a cell (query column x target base), counted from
+# ops/genewise.py's plain version: the score 4 (the gather, the stop
+# compare and select, the validity select); each of the five H candidates
+# 8 (the <= 0 compare and select, the penalty's subtraction, the compare
+# with the running best, its select and three path-field selects), and 1
+# more for the frameshift increment of four of them; the E candidate 5; E
+# 7 (two subtractions, the compare, the value's and three fields' selects);
+# Hc 1; F 12 in the sequential form of the plain version's prefix max (two
+# subtractions, the compare, four selects; the compare with Hc and its four
+# selects), whose log2(Lq) doubling rounds the recurrence does not need;
+# the NEG clamp and the validity select 2; the per-column best 6 (the
+# compare, the value's, three fields' and the base's selects)
+GENEWISE_OPS_PER_CELL = 81
+GENEWISE_REPEATS = 7
+
+
+def _genewise_bound(q, ql, aa, tl, sub) -> tuple:
+    """(bound ms, bound_by, cells): the larger of the operations this call's
+    cells need (each hit's query length x target length) at the float32
+    rate and its inputs and outputs once at the memory rate."""
+    Lq, T = q.shape[1], aa.shape[1]
+    cells = int((ql.to(torch.int64).clamp(0, Lq) * tl.to(torch.int64).clamp(0, T)).sum())
+    op_ms = cells * GENEWISE_OPS_PER_CELL / F32_OPS_PER_MS
+    k2 = sub.numel() if isinstance(sub, torch.Tensor) else np.asarray(sub).size
+    mem_ms = _bound_ms(q, ql, aa, tl) + (4 * k2 + 6 * 4 * q.shape[0]) / HBM_BYTES_PER_MS
+    return max(op_ms, mem_ms), ("operations" if op_ms >= mem_ms else "bytes"), cells
+
+
+def _time_genewise(args, kw) -> dict:
+    """The kernel (median and spread of GENEWISE_REPEATS CUDA-event-timed
+    wrapper calls after a warm-up) and the plain loop (one call) on the same
+    card tensors; all six fields bit-equal to the plain loop on the card and
+    on the CPU, or AssertionError."""
+    from mitoflex_tpu_torch.ops import genewise
+
+    times = _cuda_times(lambda: genewise.genewise_align(*args, **kw), GENEWISE_REPEATS)
+    got = genewise.genewise_align(*args, **kw)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    card = genewise.genewise_align_plain(*args, **kw)
+    end.record()
+    end.synchronize()
+    cpu = genewise.genewise_align_plain(
+        *(x.cpu() if isinstance(x, torch.Tensor) else x for x in args), **kw)
+    q, aa = args[0], args[2]
+    shape = f"{q.shape[0]} hits x Lq {q.shape[1]} x T {aa.shape[1]}"
+    for where, want in (("the card", card), ("the CPU", cpu)):
+        for field, g, w in zip(genewise.WiseHits._fields, got, want):
+            if not torch.equal(g.contiguous().view(torch.int32).cpu(),
+                               w.contiguous().view(torch.int32).cpu()):
+                raise AssertionError(f"genewise_align {field} differs from the plain loop "
+                                     f"on {where} at {shape}")
+    out = {"ms": float(np.median(times)), "min_ms": min(times), "max_ms": max(times),
+           "plain_ms": start.elapsed_time(end), "max_abs_err": 0.0, "library_ms": None,
+           "shape": shape}
+    out["bound_ms"], out["bound_by"], out["cells"] = _genewise_bound(*args[:5])
+    return out
+
+
+def _genewise_line(r) -> str:
+    return (f"{r['shape']} ({r['cells']} cells): kernel median {r['ms']:.4f} ms (min "
+            f"{r['min_ms']:.4f}, max {r['max_ms']:.4f}, {GENEWISE_REPEATS} calls), plain loop "
+            f"on the card {r['plain_ms']:.1f} ms ({r['plain_ms'] / r['ms']:.0f}x), bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']} "
+            f"({100 * r['bound_ms'] / r['ms']:.2f}% of it); all six fields bit-equal to "
+            f"the plain loop on the card and on the CPU")
+
+
+def check_genewise_kernel(dev, calls: list) -> dict:
+    """Phase 16: the genewise kernel of csrc/genewise.cu on every case of
+    ``kernel_cases.genewise_cases`` and on the golden run's calls, bit for
+    bit against its plain loop on the card and on the CPU; the real-size
+    case and each golden call timed beside the plain loop and the bound,
+    and one wrapper call of each golden call must make one cudaLaunchKernel;
+    returns the numbers of the golden run's largest call."""
+    from mitoflex_tpu_torch.ops import genewise
+    from mitoflex_tpu_torch.testing import kernel_cases
+
+    t0 = time.perf_counter()
+    n = kernel_cases.check_genewise(dev)
+    torch.cuda.synchronize()
+    _log(f"genewise kernel on {n} seeded cases (frameshifts of every step, stops, N codons "
+         f"at 13/3/15/20 and 10/2/8/12, a gene planted twice, lengths 0 to 2, odd codes, "
+         f"Lq 1 to 257 around the 4-column lanes and 128-column strips, 600 aa x 2000 "
+         f"bases): all six fields bit-equal to the plain loop on the card and on the CPU "
+         f"({time.perf_counter() - t0:.2f} s)")
+    for case in kernel_cases.genewise_cases():
+        if "real size" in case.name:
+            r = _time_genewise(kernel_cases.genewise_tensors(case, dev) + case.penalties, {})
+            _log(f"genewise case {case.name!r}: {_genewise_line(r)}")
+    if not calls:
+        raise AssertionError("the golden run made no genewise_align call")
+    out = None
+    for i, (args, kw) in enumerate(calls):
+        r = _time_genewise(args, kw)
+        ms, launches = _wall_ms_and_launches(lambda: genewise.genewise_align(*args, **kw))
+        if launches != 1:
+            raise AssertionError(f"golden genewise call {i}: {launches} cudaLaunchKernel "
+                                 f"calls in one wrapper call, not 1")
+        _log(f"golden run's genewise_align call {i}: {_genewise_line(r)}; one wrapper call "
+             f"{ms:.3f} ms on the host clock (ending in a synchronise), {launches} "
+             f"cudaLaunchKernel")
+        if out is None or r["cells"] > out["cells"]:
+            out = r
+    return out
+
+
 # ----------------------------------------------------------- device mesh
 MESH_GOLDEN_SHARDS = 4
 MESH_SMALL_SHARDS = 2
@@ -2048,8 +2200,8 @@ def run_mesh_small(tmp: str, fake, runs, dev) -> dict:
                 "small cli.picked.fa")
     _same_bytes(annotated.path, stage("card", "annotation", "locs.json"), "small locs.json")
     if min(launches[k] for k in ANNOTATE_KERNELS) <= 0:
-        raise AssertionError(f"mesh small: a Viterbi, SW or CYK kernel never launched: "
-                             f"{launches}")
+        raise AssertionError(f"mesh small: a Viterbi, SW, CYK or genewise kernel never "
+                             f"launched: {launches}")
     one_find = _stage_wall(runs.card_out, "findmitoscaf.findmitoscaf")
     one_ann = _stage_wall(runs.card_out, "annotate.annotate")
     _log(f"mesh small read set ({MESH_SMALL_SHARDS} shards of {dev}): picked FASTA and "
@@ -2194,17 +2346,17 @@ def check_mesh_functions(dev, fake) -> None:
         lambda: phmm.viterbi_scan(staged[0], torch.from_numpy(win).to(dev),
                                   torch.from_numpy(wl).to(dev), hmms[0].length))
     close(got, want, "viterbi_scan_sharded")
-    vlaunches = {k: counters[k].launches for k in SEARCH_KERNELS}
+    vlaunches = {k: counters[k].launches for k in SEARCH_KERNELS + ("genewise_align",)}
     if min(vlaunches.values()) <= 0:
-        raise AssertionError(f"mesh functions: a Viterbi or SW kernel never launched: "
-                             f"{vlaunches}")
+        raise AssertionError(f"mesh functions: a Viterbi, SW or genewise kernel never "
+                             f"launched: {vlaunches}")
     _log(f"mesh functions alone ({MESH_GOLDEN_SHARDS} shards of {dev}) against one "
          f"device: filter {B} x {L} bit-equal; partitioned count of "
          f"{2 * reads.shape[0] * (reads.shape[1] - k + 1)} k-mers (k={k}, {high} keys with a first word >= 2**31) equal, each shard "
          f"within its key range; mapper {len(mreads)} x 150 equal; SW 61 pairs, genewise "
          f"{len(batch[0])} hits, Viterbi scores ({len(hmms)} models) and envelopes of "
-         f"{len(win)} windows: coordinates equal, scores within {MESH_SCORE_TOL} (Viterbi "
-         f"and SW kernel launches {json.dumps(vlaunches)}); walls, "
+         f"{len(win)} windows: coordinates equal, scores within {MESH_SCORE_TOL} (Viterbi, "
+         f"SW and genewise kernel launches {json.dumps(vlaunches)}); walls, "
          f"s: " + ", ".join(f"{k_}: {v:.4f}" for k_, v in walls.items()))
 
 
@@ -2294,6 +2446,8 @@ def main() -> int:
                         args.seed)
         sw_golden = phase("14 SW", check_sw_kernel, dev, golden.pop("sw_calls"))
         cyk_golden = phase("15 CYK", check_cyk_kernel, dev, golden.pop("cyk_calls"))
+        gw_golden = phase("16 genewise", check_genewise_kernel, dev,
+                          golden.pop("genewise_calls"))
         phase("12 mesh", run_mesh_golden, tmp, golden, dev)
         fake, f1, f2 = make_small_reads(args.seed, tmp)
         have_mpl = _have_matplotlib()
@@ -2348,6 +2502,8 @@ def main() -> int:
              bound_by=sw_golden["bound_by"]),
         dict(entry("cyk_banded_device", "cyk.cu", "cyk_device.py:323", cyk_golden,
                    [cyk_golden]), name="cyk_banded", bound_by=cyk_golden["bound_by"]),
+        dict(entry("genewise_align", "genewise.cu", "genewise.py:75", gw_golden,
+                   [gw_golden]), bound_by=gw_golden["bound_by"]),
     ]}
     print(card)
     print(json.dumps(kernels_line))

@@ -32,7 +32,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libmitoflex_kernels.so"
-SOURCES = ("filter.cu", "merge.cu", "sort.cu", "viterbi.cu", "sw.cu", "cyk.cu")
+SOURCES = ("filter.cu", "merge.cu", "sort.cu", "viterbi.cu", "sw.cu", "cyk.cu",
+           "genewise.cu")
 HEADERS = ("merge_path.cuh",)
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -152,6 +153,12 @@ def library() -> ctypes.CDLL:
             lib.mfx_sw_align.argtypes = [vp] * 5 + [i32] * 4 + [ctypes.c_float] * 2 \
                 + [vp, vp, vp]
             lib.mfx_sw_align.restype = i32
+            # queries, q_lens, target codes, t_lens, matrix, K, B, Lq, T, stop
+            # code, gap open and extend, frameshift and stop penalties,
+            # scratch, output, stream
+            lib.mfx_genewise_align.argtypes = [vp] * 5 + [i32] * 5 \
+                + [ctypes.c_float] * 4 + [vp, vp, vp]
+            lib.mfx_genewise_align.restype = i32
             # step table, its rows, E states, their count, single5, pair5,
             # origins and codes, S, L, W, el_selfsc, deck, output, stream
             lib.mfx_cyk_banded.argtypes = [vp, i32, vp, i32, vp, vp, vp, i32, i32, i32,

@@ -377,8 +377,10 @@ def _cyk_banded_refine(
         )
     except ValueError as e:
         # the band check's refusal (a degenerate anchor): banding is an
-        # optimization, so the p7 hit stands. Anything else (a CUDA error,
-        # an out-of-memory) propagates: no failure of the device is hidden.
+        # optimization, so the p7 hit stands. Anything else propagates: a
+        # band wider than the card's kernel takes (KernelLimitError, not a
+        # ValueError), a CUDA error, an out-of-memory. No failure of the
+        # device is hidden, and the plain loop never runs in its place.
         logger.warn(f"banded CYK failed on {model.name}: {e}")
         return hit
     if aln is None or aln.score <= 10.0:

@@ -436,14 +436,25 @@ class KernelInputs(NamedTuple):
     o_j: np.ndarray
 
 
+class KernelLimitError(RuntimeError):
+    """A band wider than the kernel takes. Not a ValueError: the rRNA
+    search keeps the p7 hit on the band check's ValueError (a degenerate
+    anchor), and a width the card cannot run must fail, not change the
+    hit."""
+
+
 def check_kernel_width(slack: int) -> int:
-    """The band width W = 2 * slack + 2; ValueError when the kernel cannot
-    take it (more than KERNEL_MAX_W, or a negative slack)."""
+    """The band width W = 2 * slack + 2; ValueError for a negative slack
+    (a bad argument on every path), KernelLimitError for a width over the
+    kernel's KERNEL_MAX_W."""
     W = 2 * slack + 2
-    if slack < 0 or W > KERNEL_MAX_W:
-        raise ValueError(f"cyk_banded_device: band width {W} (slack {slack}) outside the "
-                         f"kernel's limit of 2 to {KERNEL_MAX_W} (slack 0 to "
-                         f"{(KERNEL_MAX_W - 2) // 2})")
+    if slack < 0:
+        raise ValueError(f"cyk_banded_device: negative slack {slack}")
+    if W > KERNEL_MAX_W:
+        raise KernelLimitError(
+            f"cyk_banded_device: band width {W} (slack {slack}) over the kernel's limit of "
+            f"{KERNEL_MAX_W} (slack at most {(KERNEL_MAX_W - 2) // 2}); the CPU path takes "
+            f"any slack")
     return W
 
 
@@ -457,7 +468,7 @@ def kernel_inputs(
 ) -> KernelInputs:
     """The kernel's inputs for one call on ``device``: the model's cached
     tables and this call's origins and codes, copied over in one transfer.
-    Raises ValueError as :func:`check_kernel_width` and the band check do."""
+    Raises as :func:`check_kernel_width` and the band check do."""
     dev = resolve_device(device)
     W = check_kernel_width(slack)
     window = np.asarray(window)
@@ -517,7 +528,8 @@ def cyk_banded_device(
     uniform and clamped inside the window, so they always contain the numpy
     kernel's bands: score(numpy banded) <= score(this) <= score(exact).
     On a card: one launch of the kernel of ``csrc/cyk.cu`` (slack at most
-    ``(KERNEL_MAX_W - 2) // 2``); on the CPU: the plain version's DP, as
+    ``(KERNEL_MAX_W - 2) // 2``, else KernelLimitError); on the CPU: the
+    plain version's DP, as
     :func:`cyk_banded_plain`; any other device raises ValueError."""
     dev = resolve_device(device)
     window = np.asarray(window)

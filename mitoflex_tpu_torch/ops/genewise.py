@@ -22,18 +22,23 @@ greater, in the order start, dt = 3, 1, 2, 4, 5, E; ``open`` wins ties in E;
 the prefix maximum keeps the left element on ties (``sw.prefix_argmax``);
 the end column is the first maximum.
 
-The reference's ``lax.scan`` over the T target positions is a Python loop of
-tensor steps. The last five rows of H (three of E) live in preallocated ring
-buffers that carry one extra leading column holding the shift's fill value,
-so "row t-dt shifted right along j" is a view and a step assigns slices
-instead of concatenating. The substitution score is an index gather (the
+On a card a call is one launch of the hand-written kernel of
+``csrc/genewise.cu`` for every hit, bit-equal to the plain version
+``genewise_align_plain`` (with integer substitution scores and penalties,
+which is all the pipeline uses), which CPU tensors take. In the plain
+version the reference's ``lax.scan`` over the T target positions is a
+Python loop of tensor steps. The last five rows of H (three of E) live in
+preallocated ring buffers that carry one extra leading column holding the
+shift's fill value, so "row t-dt shifted right along j" is a view and a
+step assigns slices instead of concatenating. The substitution score is an index gather (the
 reference's one-hot matvec sums one non-zero term). The three integer path
 fields (query start, target start, frameshifts) ride as one [3, B, Lq]
 tensor.
 
 Steps past every row's target length and columns past every row's query
-length change no result (their cells are masked), so a call runs
-``max(t_lens)`` steps over ``max(q_lens)`` columns.
+length change no result (their cells are masked), so the plain version runs
+``max(t_lens)`` steps over ``max(q_lens)`` columns and the kernel stops
+each row at its own lengths.
 """
 
 from __future__ import annotations
@@ -43,8 +48,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..models import codon
-from .sw import prefix_argmax
+from .sw import _check_inputs, prefix_argmax
 
 NEG = -1e30
 
@@ -80,7 +86,7 @@ def translate_windows(windows: np.ndarray, table_id: int) -> np.ndarray:
     return out
 
 
-def genewise_align(
+def genewise_align_plain(
     queries: torch.Tensor,    # [B, Lq] aa codes
     q_lens: torch.Tensor,     # [B]
     target_aa: torch.Tensor,  # [B, T] aa-of-codon-ending-at-t (int8)
@@ -199,3 +205,61 @@ def genewise_align(
         score=pick(bV), q_from=pick(bP[_QS]), q_to=endj[:, 0].to(i32),
         t_from=pick(bP[_TS]), t_to=pick(bT), n_shift=pick(bP[_SH]),
     )
+
+
+# fields of the kernel's [6, B] int32 output, in WiseHits order (the score
+# as float32 bits)
+_OUT_ROWS = len(WiseHits._fields)
+# columns of one strip of the kernel (csrc/genewise.cu kStrip); a query
+# longer than that carries each target position's state across strips
+# through a [B, T, 12] int32 scratch tensor (H, E and F, each a value and
+# three path fields)
+KERNEL_STRIP = 128
+_BOUNDARY_WORDS = 12
+
+
+def genewise_align(
+    queries: torch.Tensor,    # [B, Lq] int8 aa codes
+    q_lens: torch.Tensor,     # [B] integer
+    target_aa: torch.Tensor,  # [B, T] int8 aa-of-codon-ending-at-t
+    t_lens: torch.Tensor,     # [B] integer nt lengths
+    submat,                   # [K, K] (array or tensor)
+    gap_open: float = 13.0,
+    gap_extend: float = 3.0,
+    fs_penalty: float = 15.0,
+    stop_penalty: float = 20.0,
+) -> WiseHits:
+    """Best frameshift-tolerant local alignment of query row i with the
+    translated target row i, with its envelope and frameshift count.
+    Tensors on a card: one launch of the kernel of ``csrc/genewise.cu`` for
+    every hit (each row stops at its own lengths; no host sync); on the
+    CPU: :func:`genewise_align_plain`."""
+    dev = queries.device
+    if dev.type == "cpu":
+        return genewise_align_plain(queries, q_lens, target_aa, t_lens, submat, gap_open,
+                                    gap_extend, fs_penalty, stop_penalty)
+    if dev.type != "cuda":
+        raise ValueError(f"genewise_align: unsupported device {dev}")
+    q_lens, t_lens, sub = _check_inputs(queries, q_lens, target_aa, t_lens, submat,
+                                        "genewise_align", "target_aa")
+    B, Lq = queries.shape
+    T = target_aa.shape[1]
+    out = torch.empty((_OUT_ROWS, B), dtype=torch.int32, device=dev)
+    if B:
+        scratch = None
+        if Lq > KERNEL_STRIP and T:
+            scratch = torch.empty((B, T, _BOUNDARY_WORDS), dtype=torch.int32, device=dev)
+        err = kernels.launch(
+            dev, kernels.library().mfx_genewise_align, queries.data_ptr(),
+            q_lens.data_ptr(), target_aa.data_ptr(), t_lens.data_ptr(), sub.data_ptr(),
+            sub.shape[0], B, Lq, T, codon.STOP_CODE, float(gap_open), float(gap_extend),
+            float(fs_penalty), float(stop_penalty),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr())
+        if err:
+            kernels.check(err, "genewise_align")
+        genewise_align.launches += 1
+    return WiseHits(out[0].view(torch.float32), *out[1:])
+
+
+# kernel launches since the last reset (a plain counter, never reset here)
+genewise_align.launches = 0

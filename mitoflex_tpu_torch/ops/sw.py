@@ -202,33 +202,36 @@ _BOUNDARY_WORDS = 14
 
 
 def _check_inputs(queries: torch.Tensor, q_lens: torch.Tensor, targets: torch.Tensor,
-                  t_lens: torch.Tensor, submat) -> tuple:
+                  t_lens: torch.Tensor, submat, what: str = "sw_align",
+                  targets_name: str = "targets") -> tuple:
     """The lengths as int32 and the matrix as a float32 tensor on the
-    queries' device; ValueError unless the kernel takes these arguments:
-    int8 queries [B, Lq] and targets [B, Lt], integer lengths [B], a square
-    matrix, all contiguous on one device. Lengths of another integer type,
-    and a matrix given as an array or in another type, are converted there."""
+    queries' device; ValueError naming ``what`` unless its kernel takes
+    these arguments: int8 queries [B, Lq] and targets [B, Lt], integer
+    lengths [B], a square matrix, all contiguous on one device. Lengths of
+    another integer type, and a matrix in another type, are converted there;
+    a matrix given as an array is converted on the host, so that a call
+    launches no kernel but its own."""
     dev = queries.device
-    for name, x in (("queries", queries), ("targets", targets)):
+    for name, x in (("queries", queries), (targets_name, targets)):
         if x.dim() != 2 or x.dtype != torch.int8 or not x.is_contiguous() \
                 or x.device != dev:
-            raise ValueError(f"sw_align: {name} must be a contiguous int8 tensor [B, L] "
+            raise ValueError(f"{what}: {name} must be a contiguous int8 tensor [B, L] "
                              f"on {dev}, got {x.dtype} {list(x.shape)} on {x.device}")
     B = queries.shape[0]
     if targets.shape[0] != B:
-        raise ValueError(f"sw_align: {B} queries but {targets.shape[0]} targets")
+        raise ValueError(f"{what}: {B} queries but {targets.shape[0]} targets")
     lens = []
     for name, x in (("q_lens", q_lens), ("t_lens", t_lens)):
         if x.dtype.is_floating_point or x.dtype.is_complex or x.dtype == torch.bool \
                 or tuple(x.shape) != (B,) or x.device != dev:
-            raise ValueError(f"sw_align: {name} must be an integer tensor [{B}] on {dev}, "
+            raise ValueError(f"{what}: {name} must be an integer tensor [{B}] on {dev}, "
                              f"got {x.dtype} {list(x.shape)} on {x.device}")
         lens.append(x.to(torch.int32).contiguous())
     sub = submat if isinstance(submat, torch.Tensor) \
-        else torch.as_tensor(np.asarray(submat), dtype=torch.float32, device=dev)
+        else torch.from_numpy(np.ascontiguousarray(submat, dtype=np.float32)).to(dev)
     if sub.device != dev or sub.dim() != 2 or sub.shape[0] != sub.shape[1] \
             or sub.shape[0] < 1:
-        raise ValueError(f"sw_align: submat must be a square [K, K] matrix on {dev}, got "
+        raise ValueError(f"{what}: submat must be a square [K, K] matrix on {dev}, got "
                          f"{list(sub.shape)} on {sub.device}")
     return lens[0], lens[1], sub.to(torch.float32).contiguous()
 

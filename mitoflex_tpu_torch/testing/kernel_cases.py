@@ -14,8 +14,9 @@ and :func:`check_filter` do the same for the read filter of ``ops/filter.py``
 (row widths on both of its paths, edge lengths, odd codes and valves), and
 :func:`viterbi_cases` and :func:`check_viterbi` for the two Viterbi passes of
 ``ops/phmm.py``, :func:`sw_cases` and :func:`check_sw` for the
-Smith-Waterman of ``ops/sw.py``, and :func:`cyk_cases` and :func:`check_cyk`
-for the banded CYK of ``ops/cyk_device.py``.
+Smith-Waterman of ``ops/sw.py``, :func:`cyk_cases` and :func:`check_cyk`
+for the banded CYK of ``ops/cyk_device.py``, and :func:`genewise_cases` and
+:func:`check_genewise` for the frameshift DP of ``ops/genewise.py``.
 """
 
 from __future__ import annotations
@@ -689,3 +690,301 @@ def check_cyk(got, want, what: str, cells: bool = True) -> float:
                              f"{cyk_score_tol(w[i])}")
     live = w > -5e29
     return float(err[live].max()) if live.any() else 0.0
+
+
+# ------------------------------------------------------- genewise cases
+GENEWISE_TABLE = 5
+# (gap open, gap extend, frameshift, stop): the pipeline's, and the other
+# integer set that tests/test_torch_genewise.py holds against the JAX package
+GENEWISE_PENALTIES = ((13.0, 3.0, 15.0, 20.0), (10.0, 2.0, 8.0, 12.0))
+
+
+class GenewiseCase(NamedTuple):
+    name: str
+    queries: np.ndarray      # [B, Lq] int8 aa codes
+    q_lens: np.ndarray       # [B] int32
+    target_aa: np.ndarray    # [B, T] int8 aa of the codon ending at each base
+    t_lens: np.ndarray       # [B] int32
+    penalties: Tuple[float, float, float, float]
+
+
+def _wise_gene(rng: np.random.Generator, n_codons: int, kind: str, flank: int
+               ) -> Tuple[np.ndarray, str]:
+    """(protein codes, DNA window) of a random ORF of ``n_codons`` sense
+    codons in random flanks of up to ``flank`` bases, edited by ``kind``:
+    clean, plus1 / plus2 (one or two bases inserted: a step of 4 or 5),
+    minus1 / minus2 (one or two bases lost: a step of 2 or 1), stop (an
+    in-frame stop codon), with_n (an N codon), mutated (six substitutions),
+    twice (the gene, a spacer and the gene again), random (unrelated DNA)."""
+    from ..models import codon
+
+    gc = codon.get_code(GENEWISE_TABLE)
+    sense = [c for c, a in sorted(gc.forward.items()) if a != "*"]
+    stop = next(c for c, a in sorted(gc.forward.items()) if a == "*")
+
+    def dna(k):
+        return "".join("ACGT"[int(i)] for i in rng.integers(0, 4, k))
+
+    nt = "".join(sense[int(i)] for i in rng.integers(0, len(sense), n_codons))
+    pep = codon.aa_encode(gc.translate_str(nt))
+    mid = 3 * (n_codons // 2)
+    edits = {"plus1": lambda s: s[:mid] + "A" + s[mid:],
+             "plus2": lambda s: s[:mid] + "CA" + s[mid:],
+             "minus1": lambda s: s[:mid] + s[mid + 1:],
+             "minus2": lambda s: s[:mid] + s[mid + 2:],
+             "stop": lambda s: s[:mid] + stop + s[mid + 3:],
+             "with_n": lambda s: s[:mid] + "NNN" + s[mid + 3:],
+             "twice": lambda s: s + dna(30) + s,
+             "random": lambda s: dna(len(s))}
+    if kind == "mutated":
+        arr = list(nt)
+        for i in rng.integers(0, len(arr), 6):
+            arr[int(i)] = "ACGT"[int(rng.integers(0, 4))]
+        nt = "".join(arr)
+    elif kind != "clean":
+        nt = edits[kind](nt)
+    return pep, dna(int(rng.integers(0, flank + 1))) + nt + dna(int(rng.integers(0, flank + 1)))
+
+
+def _wise_batch(rows, q_fill: int, pad_q: int = 0, pad_t: int = 0
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(queries, q_lens, target_aa, t_lens) of ``rows`` [(protein codes,
+    window string)], padded with ``q_fill`` and N to the longest row plus
+    ``pad_q`` / ``pad_t``; the windows translated in table 5."""
+    from ..io import encoding
+    from ..ops import genewise
+
+    B = len(rows)
+    qa = np.full((B, max(max(len(q) for q, _ in rows) + pad_q, 1)), q_fill, np.int8)
+    ta = np.full((B, max(max(len(t) for _, t in rows) + pad_t, 1)), 4, np.int8)
+    ql, tl = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    for i, (q, t) in enumerate(rows):
+        qa[i, : len(q)] = q
+        ta[i, : len(t)] = encoding.encode(t)
+        ql[i], tl[i] = len(q), len(t)
+    return qa, ql, genewise.translate_windows(ta, GENEWISE_TABLE), tl
+
+
+def genewise_cases(seed: int = 2030) -> Iterator[GenewiseCase]:
+    """Seeded ``genewise_align`` calls: frameshifts of every step (a base
+    or two gained or lost), in-frame stops, N codons and substitutions at
+    both integer penalty sets; a gene planted twice (two equal maxima, the
+    first wins); query and target lengths of 0, 1 and 2; odd codes
+    (negative and >= K) in both; query lengths around the kernel's 4-column
+    lanes and 128-column strips (1 to 257); and a real-size hit: a 600-aa
+    protein (ND5's size) in a 2000-base window."""
+    from ..models import codon
+
+    rng = np.random.default_rng(seed)
+    X = codon.X_CODE
+    kinds = ("clean", "plus1", "plus2", "minus1", "minus2", "stop", "with_n", "mutated",
+             "random")
+    for pen in GENEWISE_PENALTIES:
+        rows = [_wise_gene(rng, int(rng.integers(30, 61)), k, 40) for k in kinds]
+        yield GenewiseCase(f"every frameshift step, stops, N codons at {pen}",
+                           *_wise_batch(rows, X, pad_q=5, pad_t=17), pen)
+    rows = [_wise_gene(rng, int(rng.integers(20, 50)), "twice", 20) for _ in range(4)]
+    yield GenewiseCase("a gene planted twice (the first maximum wins)",
+                       *_wise_batch(rows, X), GENEWISE_PENALTIES[0])
+
+    rows = [_wise_gene(rng, 20, "clean", 10) for _ in range(9)]
+    qa, ql, aa, tl = _wise_batch(rows, X)
+    ql[:] = (0, 1, 2, 20, 20, 20, 0, 1, 2)
+    tl[:] = (tl[0], tl[1], tl[2], 0, 1, 2, 0, 2, 1)
+    yield GenewiseCase("query and target lengths of 0, 1 and 2", qa, ql, aa, tl,
+                       GENEWISE_PENALTIES[0])
+
+    rows = [_wise_gene(rng, 40, k, 20) for k in ("clean", "plus1", "mutated", "minus1")]
+    qa, ql, aa, tl = _wise_batch(rows, X)
+    odd = np.array([-3, codon.NUM_AA, codon.NUM_AA + 7, 127, -128, -1], np.int8)
+    qa[:, 5:11] = odd
+    aa[:, 30:36] = odd
+    aa[2, 60:63] = codon.STOP_CODE
+    yield GenewiseCase("odd codes (negative, >= K) in queries and targets", qa, ql, aa, tl,
+                       GENEWISE_PENALTIES[1])
+
+    sizes = (125, 126, 127, 128, 128, 129, 4, 5, 3, 1)
+    rows = [_wise_gene(rng, n, ("clean", "plus1", "minus2")[i % 3], 30)
+            for i, n in enumerate(sizes)]
+    yield GenewiseCase("Lq 125 to 129: one and two strips",
+                       *_wise_batch(rows, X), GENEWISE_PENALTIES[0])
+    sizes = (257, 256, 255, 129, 127, 2)
+    rows = [_wise_gene(rng, n, ("plus2", "minus1", "stop")[i % 3], 30)
+            for i, n in enumerate(sizes)]
+    yield GenewiseCase("Lq 255 to 257: up to three strips",
+                       *_wise_batch(rows, X), GENEWISE_PENALTIES[1])
+
+    rows = [_wise_gene(rng, 600, "plus1", 100), _wise_gene(rng, 580, "minus1", 100)]
+    yield GenewiseCase("real size: 600 aa against 2000 bases",
+                       *_wise_batch(rows, X), GENEWISE_PENALTIES[0])
+
+
+def genewise_tensors(case: GenewiseCase, device) -> tuple:
+    """A case's (queries, q_lens, target_aa, t_lens, BLOSUM62) as tensors on
+    ``device``."""
+    import torch
+
+    from ..models import codon
+
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                 for x in (case.queries, case.q_lens, case.target_aa, case.t_lens,
+                           codon.blosum62().astype(np.float32)))
+
+
+def genewise_kernel_model(queries, q_lens, target_aa, t_lens, submat, gap_open=13.0,
+                          gap_extend=3.0, fs_penalty=15.0, stop_penalty=20.0) -> tuple:
+    """numpy model of csrc/genewise.cu's order of work, every sum a float32
+    operation: strips of KERNEL_STRIP query columns one after another; in a
+    strip, the cells of one anti-diagonal (base t, column c with t + c
+    fixed: the kernel's wavefront with one column a lane) together. A cell
+    reads rows t-1 to t-5 of its left neighbour and row t-3 of its own
+    column, which lie on the last seven anti-diagonals (kept here by
+    anti-diagonal, in the kernel by base); rows before 0 and the column left
+    of the query read NEG. F is carried cell to cell along the row in its
+    sequential form (extension on ties); each base's H and E of a strip's
+    last column and the F leaving it go to the next strip through a
+    [B, T, 12] int32 scratch row; the best cell is replaced on a greater
+    value or an equal one in an earlier column. Returns the six
+    ``WiseHits`` fields as numpy arrays (score float32, the rest int32)."""
+    from ..models import codon
+    from ..ops.genewise import KERNEL_STRIP, _BOUNDARY_WORDS
+
+    f32 = np.float32
+    NEG = f32(-1e30)
+    sub = np.asarray(submat, np.float32)
+    K = sub.shape[0]
+    q = np.asarray(queries).astype(np.int64)
+    a = np.asarray(target_aa).astype(np.int64)
+    B, Lq = q.shape
+    T = a.shape[1]
+    ql = np.clip(np.asarray(q_lens, np.int64), 0, Lq)
+    tl = np.clip(np.asarray(t_lens, np.int64), 0, T)
+    go, ge, fs, neg_stop = f32(gap_open), f32(gap_extend), f32(fs_penalty), -f32(stop_penalty)
+    qc, ac = np.clip(q, 0, K - 1), np.clip(a, 0, K - 1)
+    stop = a == codon.STOP_CODE
+    bv, bj, bt = np.zeros(B, f32), np.zeros(B, np.int64), np.zeros(B, np.int64)
+    bf = np.zeros((B, 3), np.int64)                  # query start, target start, shifts
+    scratch = np.zeros((B, max(T, 1), _BOUNDARY_WORDS), np.int32)
+    rows = np.arange(B)
+    R = 8                                            # anti-diagonals kept
+    for s0 in range(0, int(ql.max()) if B else 0, KERNEL_STRIP):
+        n = min(KERNEL_STRIP, Lq - s0)
+        more = s0 + KERNEL_STRIP < ql
+        cols = np.arange(n)
+        j = s0 + cols
+        qj = qc[:, j].T                              # [n, B]
+        # [R, n + 1, B]: H and E of anti-diagonal d at [d % R]; index 0 is
+        # the column left of the strip, index c + 1 strip column c
+        Hv = np.full((R, n + 1, B), NEG, f32)
+        Ev = np.full((R, n + 1, B), NEG, f32)
+        Hf = np.zeros((R, n + 1, B, 3), np.int64)
+        Ef = np.zeros((R, n + 1, B, 3), np.int64)
+        Fv = np.full((n + 1, B), NEG, f32)           # F entering each column
+        Ff = np.zeros((n + 1, B, 3), np.int64)
+        zero = np.zeros((n, B), np.int64)
+        for d in range(int(tl.max()) + n - 1):
+            t = d - cols                             # [n]
+            act = (t[:, None] >= 0) & (t[:, None] < tl[None, :]) & (j[:, None] < ql[None, :])
+            if s0 > 0:
+                # lane 0 reads base d of the column left of the strip, which
+                # lies on anti-diagonal d - 1
+                lb = act[0]
+                w = scratch[:, min(d, T - 1)]
+                k = (d - 1) % R
+                Hv[k, 0] = np.where(lb, w[:, 0].view(f32), NEG)
+                Hf[k, 0] = np.where(lb[:, None], w[:, 1:4], 0)
+                Ev[k, 0] = np.where(lb, w[:, 4].view(f32), NEG)
+                Ef[k, 0] = np.where(lb[:, None], w[:, 5:8], 0)
+                Fv[0] = np.where(lb, w[:, 8].view(f32), NEG)
+                Ff[0] = np.where(lb[:, None], w[:, 9:12], 0)
+            tc = np.clip(t, 0, T - 1)
+            s = np.where(stop[:, tc].T, neg_stop, sub[qj, ac[:, tc].T])      # [n, B]
+            A = np.zeros((n, B), f32)
+            P = np.stack([np.broadcast_to(j[:, None], (n, B)),
+                          np.broadcast_to(np.maximum(t - 2, 0)[:, None], (n, B)), zero], -1)
+            for dt in (3, 1, 2, 4, 5):
+                k = (d - dt - 1) % R                 # H[t - dt, c - 1]
+                hv, hf = Hv[k, :n], Hf[k, :n]
+                cand = np.where(hv <= 0, NEG, hv) - (f32(0) if dt == 3 else fs)
+                take = cand > A
+                A = np.where(take, cand, A)
+                P = np.where(take[..., None], hf + (0, 0, int(dt != 3)), P)
+            k = (d - 4) % R                          # E[t - 3, c - 1]
+            take = Ev[k, :n] > A
+            A = np.where(take, Ev[k, :n], A)
+            P = np.where(take[..., None], Ef[k, :n], P)
+            k = (d - 3) % R                          # H and E[t - 3, c]
+            e_open = Hv[k, 1:] - go
+            e_ext = Ev[k, 1:] - ge
+            take_open = e_open >= e_ext
+            E = np.where(take_open, e_open, e_ext)
+            Epf = np.where(take_open[..., None], Hf[k, 1:], Ef[k, 1:])
+            Hc = s + A
+            f, ff = Fv[:n].copy(), Ff[:n].copy()
+            use_f = f > Hc
+            H = np.maximum(np.where(use_f, f, Hc), NEG)
+            Hpf = np.where(use_f[..., None], ff, P)
+            f_ext, f_open = f - ge, Hc - go
+            keep = f_ext >= f_open
+            Fv[1:] = np.where(keep, f_ext, f_open)
+            Ff[1:] = np.where(keep[..., None], ff, P)
+            # cells outside the row's lengths: NEG, zero fields
+            k = d % R
+            Hv[k, 1:] = np.where(act, H, NEG)
+            Hf[k, 1:] = np.where(act[..., None], Hpf, 0)
+            Ev[k, 1:] = np.where(act, E, NEG)
+            Ef[k, 1:] = np.where(act[..., None], Epf, 0)
+            # the anti-diagonal's best cell of each row (the largest H, then
+            # the first column) replaces the running best as in the kernel
+            hv = np.where(act, H, -np.inf)
+            c = np.argmax(hv, axis=0)
+            v = hv[c, rows]
+            better = act.any(0) & ((v > bv) | ((v == bv) & (j[c] < bj)))
+            bv = np.where(better, v, bv).astype(f32)
+            bj = np.where(better, j[c], bj)
+            bt = np.where(better, t[c], bt)
+            bf = np.where(better[:, None], Hpf[c, rows], bf)
+            lb = more & act[n - 1]
+            if lb.any():
+                # the last lane writes base t of the strip's last column
+                w = scratch[:, t[n - 1]]
+                w[lb, 0] = H[n - 1, lb].view(np.int32)
+                w[lb, 1:4] = Hpf[n - 1, lb]
+                w[lb, 4] = E[n - 1, lb].view(np.int32)
+                w[lb, 5:8] = Epf[n - 1, lb]
+                w[lb, 8] = Fv[n, lb].view(np.int32)
+                w[lb, 9:12] = Ff[n, lb]
+    i32 = np.int32
+    return (bv, bf[:, 0].astype(i32), bj.astype(i32), bf[:, 1].astype(i32), bt.astype(i32),
+            bf[:, 2].astype(i32))
+
+
+def check_genewise(device) -> int:
+    """Every case of :func:`genewise_cases` through ``ops.genewise.
+    genewise_align`` on ``device`` (a card: the kernel), held against
+    ``genewise_align_plain`` on the same tensors and, on a card, against
+    the CPU's: all six fields bit for bit (the score as float32 bits).
+    Raises AssertionError on the first difference; returns the number of
+    cases."""
+    import torch
+
+    from ..ops import genewise
+
+    def bits(x):
+        return x.contiguous().view(torch.int32).cpu()
+
+    n_cases = 0
+    for case in genewise_cases():
+        args = genewise_tensors(case, device)
+        got = genewise.genewise_align(*args, *case.penalties)
+        wants = [("its plain version", genewise.genewise_align_plain(*args, *case.penalties))]
+        if torch.device(device).type != "cpu":
+            cpu = genewise_tensors(case, "cpu")
+            wants.append(("the CPU", genewise.genewise_align_plain(*cpu, *case.penalties)))
+        for what, want in wants:
+            for field, g, w in zip(genewise.WiseHits._fields, got, want):
+                if not torch.equal(bits(g), bits(w)):
+                    raise AssertionError(f"genewise_align {field} differs from {what}: "
+                                         f"{case.name}")
+        n_cases += 1
+    return n_cases

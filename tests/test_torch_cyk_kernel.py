@@ -217,21 +217,87 @@ def test_cpu_calls_take_the_plain_version_and_launch_nothing():
 
 
 def test_kernel_arguments_are_checked():
-    """An over-limit band width and a device that is neither the CPU nor a
+    """An over-limit band width raises KernelLimitError naming the width and
+    the limit, a negative slack and a device that is neither the CPU nor a
     card raise ValueError naming them; nothing falls back."""
     c = CASES[0]
     model = kernel_cases.cyk_model(c.model_key)
     assert cyk_device.check_kernel_width(48) == 98
     assert cyk_device.check_kernel_width((cyk_device.KERNEL_MAX_W - 2) // 2) == \
         cyk_device.KERNEL_MAX_W
-    for slack in ((cyk_device.KERNEL_MAX_W - 2) // 2 + 1, 100, -1):
-        with pytest.raises(ValueError, match=f"limit of 2 to {cyk_device.KERNEL_MAX_W}"):
+    for slack in ((cyk_device.KERNEL_MAX_W - 2) // 2 + 1, 100):
+        with pytest.raises(cyk_device.KernelLimitError,
+                           match=f"band width {2 * slack + 2} .* limit of "
+                                 f"{cyk_device.KERNEL_MAX_W}"):
             cyk_device.check_kernel_width(slack)
-        with pytest.raises(ValueError, match="band width"):
+        with pytest.raises(cyk_device.KernelLimitError, match="band width"):
             cyk_device.kernel_inputs(model, c.window, c.anchor, slack, c.local, "cpu")
+    with pytest.raises(ValueError, match="negative slack -1"):
+        cyk_device.check_kernel_width(-1)
+    with pytest.raises(ValueError, match="negative slack"):
+        cyk_device.kernel_inputs(model, c.window, c.anchor, -1, c.local, "cpu")
     for fn in (cyk_device.cyk_banded_device, cyk_device.cyk_banded_maxima):
         with pytest.raises(ValueError, match="unsupported device meta"):
             fn(model, c.window, c.anchor, c.slack, c.local, "meta")
+
+
+def test_kernel_width_limit_is_no_value_error():
+    """The kernel's width limit is an error of its own, which the rRNA
+    search's refine does not take for the band check's refusal."""
+    with pytest.raises(cyk_device.KernelLimitError) as err:
+        cyk_device.check_kernel_width(64)
+    assert not isinstance(err.value, ValueError)
+    assert isinstance(err.value, RuntimeError)
+    assert "band width 130" in str(err.value) and "128" in str(err.value)
+
+
+def _refine_inputs():
+    """(model, contig, p7 hit) of the planted tRNA-size case: the window as
+    a contig, the hit on its anchor."""
+    from mitoflex_tpu_torch.io import encoding
+    from mitoflex_tpu_torch.io.fasta import FastaRecord
+    from mitoflex_tpu_torch.models import cmsearch
+
+    c = next(c for c in CASES if c.name == "trna planted slack 12 local")
+    model = kernel_cases.cyk_model(c.model_key)
+    rec = FastaRecord("w", encoding.decode(np.asarray(c.window)), {})
+    hit = cmsearch.CmHit("w", 30.0, 1e-5, c.anchor[0] + 1, c.anchor[1] + 1, True,
+                         c.anchor[2] + 1, c.anchor[3] + 1)
+    return model, rec, hit
+
+
+@pytest.mark.parametrize("error", ["width limit", "band check"])
+def test_refine_lets_the_width_limit_propagate(error, monkeypatch):
+    """A backend that refuses the width (as the card's does for W > 128)
+    fails the refine loudly; the band check's ValueError still keeps the p7
+    hit."""
+    from mitoflex_tpu_torch.models import cmsearch
+
+    model, rec, hit = _refine_inputs()
+
+    def backend(model, window, anchor, slack, local=False):
+        if error == "width limit":
+            cyk_device.check_kernel_width(slack)
+        raise ValueError("bifurcation band offset exceeds width")
+
+    monkeypatch.setattr(cmsearch, "_banded_backend", lambda device=None: backend)
+    if error == "width limit":
+        with pytest.raises(cyk_device.KernelLimitError, match="band width 130"):
+            cmsearch._cyk_banded_refine(model, rec, hit, slack=64, device="cpu")
+    else:
+        assert cmsearch._cyk_banded_refine(model, rec, hit, slack=12, device="cpu") is hit
+
+
+def test_cpu_refine_takes_any_slack(monkeypatch):
+    """On the CPU the tensor DP (the plain version) runs a band wider than
+    the kernel's limit and rescores the hit, as before."""
+    from mitoflex_tpu_torch.models import cmsearch
+
+    model, rec, hit = _refine_inputs()
+    monkeypatch.setenv("MITOFLEX_DEVICE_CYK", "1")
+    got = cmsearch._cyk_banded_refine(model, rec, hit, slack=64, device="cpu")
+    assert got is not hit and got.score > 10.0
+    assert (got.seqfrom, got.seqto) == (hit.seqfrom, hit.seqto)
 
 
 def test_step_table_is_the_jax_scan_table(jax_models):
