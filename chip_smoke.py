@@ -91,7 +91,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    CPU on a seeded batch (frameshifts, stops, a window that holds its gene
    twice): coordinates and frameshift counts equal, scores within 1e-4;
    timed (host clock around a call that ends in a synchronise) with its
-   ``cudaLaunchKernel`` calls counted. The banded CYK, which this phase
+   kernel launches counted. The banded CYK, which this phase
    held until its kernel came, is phase 15's.
 10. The rest of the command line on phase 8's card run: ``visualize``
    alone on the picked FASTA with ``--locs`` (the same track files again;
@@ -134,7 +134,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    each timed beside its plain loop and its bound: the float32 operations
    that the call's cells need at 67 TFLOP/s, or its bytes once at 3.35
    TB/s where that is larger; then findmitoscaf's ``nhmmer_search`` call of
-   phase 6 again, alone, with its ``cudaLaunchKernel`` calls counted under
+   phase 6 again, alone, with its kernel launches counted under
    torch.profiler.
 14. The Smith-Waterman kernel of mitoflex_tpu_torch/csrc/sw.cu (run right
    after phase 13) against its plain loop on the same card tensors, all
@@ -158,8 +158,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernel <= exact CYK at the tRNA size; each golden call and a case of
    each model timed beside the plain loop on the card and the bound (every
    block written and every child block read once at 3.35 TB/s, or the
-   float32 operations at 67 TFLOP/s where that is larger); a tRNA-size
-   call's ``cudaLaunchKernel`` calls counted.
+   float32 operations at 67 TFLOP/s where that is larger); the golden
+   models' schedule depth (the states on their longest chain of children,
+   which the kernel's dataflow walks); a tRNA-size call must make exactly
+   one kernel launch.
 16. The genewise kernel of mitoflex_tpu_torch/csrc/genewise.cu (run right
    after phase 15) on every seeded case of ``kernel_cases.genewise_cases``
    (frameshifts of every step, stops, N codons, both penalty sets, a gene
@@ -169,11 +171,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    CPU; the real-size case and each golden call timed (median and spread of
    at least 5 calls) beside the plain loop on the card and the operations
    bound; one wrapper call of each golden call must make exactly one
-   ``cudaLaunchKernel``.
+   kernel launch.
 
 Kernel times are medians of CUDA-event-timed repeats after a warm-up; one
 repeat is one call of the kernel's wrapper between two events, so it holds
-the wrapper's host time before the launch too. K1 to K4's bound is the
+the wrapper's host time before the launch too. Phases 13 to 16 also replay
+every call the golden run made of the Viterbi passes, Smith-Waterman, the
+banded CYK and genewise, each timed so, and sum them (``golden_sum_ms``
+in the per-kernel line, beside ``golden_launches``, the kernel's launches in
+phase 6's golden run, the same count as ``launches``). Kernel launches are counted under torch.profiler over every launch
+call of the CUDA runtime API and of the lower-level cu* API
+(``LAUNCH_APIS``). K1 to K4's bound is the
 bytes of their inputs and outputs, moved once at the H100's 3.35 TB/s; the
 Viterbi, SW and genewise kernels' is their operations (phases 13, 14 and
 16), the CYK kernel's its blocks' bytes (phase 15). The last two lines are one JSON object of per-kernel results and then
@@ -188,6 +196,7 @@ import argparse
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -1521,12 +1530,27 @@ def run_bim_vs_cpu(tmp: str, fake, f1: str, f2: str, cpu_bim: _Command,
 GENEWISE_SCORE_TOL = 1e-4   # the same float32 terms on both devices
 
 
+# the calls of the CUDA runtime API (cuda*) and of the lower-level cu* API
+# that launch a kernel, as torch.profiler names them
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+               "cudaLaunchCooperativeKernelMultiDevice", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cuLaunchCooperativeKernel", "cuLaunchCooperativeKernelMultiDevice")
+
+
+def _launch_count(events) -> int:
+    """Kernel launches among profiler events (``key_averages()``), by every
+    launch call of LAUNCH_APIS (a versioned name such as
+    ``cudaLaunchKernel_v7000`` counts as its call)."""
+    return sum(e.count for e in events if re.sub(r"_v\d+$", "", e.key) in LAUNCH_APIS)
+
+
 def _wall_ms_and_launches(fn, count_launches: bool = True):
     """(milliseconds of one call on the host clock, ending in a
-    synchronise, after a warm-up call; eager kernel launches of one call,
-    or None where they were not counted or the profiler reports none).
-    Counting costs about a millisecond of profiler time per launch, so the
-    calls of tens of thousands of launches leave it out."""
+    synchronise, after a warm-up call; kernel launches of one call, by any
+    launch call of LAUNCH_APIS, or None where they were not counted or the
+    profiler reports none). Counting costs about a millisecond of profiler
+    time per launch, so the calls of tens of thousands of launches leave it
+    out."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1540,8 +1564,29 @@ def _wall_ms_and_launches(fn, count_launches: bool = True):
     with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
-    return ms, (launches or None)
+    return ms, (_launch_count(prof.key_averages()) or None)
+
+
+GOLDEN_REPEATS = 3
+
+
+def _golden_replay(name: str, calls: list, run) -> dict:
+    """Every call the golden run made of kernel ``name`` through its wrapper
+    again (``run(call)``): the launches of one replay of them all on the
+    wrapper's own counter (``replay_launches``, which only phase 15's check
+    reads), and the sum over the calls of each call's median of
+    GOLDEN_REPEATS CUDA-event-timed calls after a warm-up
+    (``golden_sum_ms``)."""
+    counter = _launch_counters()[name]
+    before = counter.launches
+    for c in calls:
+        run(c)
+    torch.cuda.synchronize()
+    launches = counter.launches - before
+    total = sum(_cuda_ms(lambda: run(c), GOLDEN_REPEATS) for c in calls)
+    _log(f"golden run's {len(calls)} {name} calls replayed: {launches} kernel launches, "
+         f"{total:.4f} ms summed (each call's median of {GOLDEN_REPEATS})")
+    return {"golden_calls": len(calls), "replay_launches": launches, "golden_sum_ms": total}
 
 
 def _random_dna(rng, n: int) -> str:
@@ -1613,7 +1658,7 @@ def check_genewise_vs_cpu(dev) -> None:
          f"{int(tl.max())} nt (frameshifts +1, -1, +2, in-frame stops, a gene planted "
          f"twice): coordinates and frameshift counts equal, scores within "
          f"{GENEWISE_SCORE_TOL} (max {err:.2e}); {ms:.2f} ms a call (the copies to the card "
-         f"included), {launches} cudaLaunchKernel a call")
+         f"included), {launches} kernel launches a call")
 
 
 # ------------------------------------------------------- Viterbi kernels
@@ -1731,13 +1776,15 @@ def check_viterbi_kernels(dev, calls: dict, nhmmer_calls: list, seed: int) -> di
         out[name] = r
         _log(f"golden run's largest {_viterbi_line(name, r)}; {len(recorded)} calls "
              f"in the run, {total} cells in all")
+        r.update(_golden_replay(name, recorded, lambda c, fn=getattr(phmm, name):
+                                fn(c[0], *c[1:-1], **c[-1])))
     stage, contigs, profiles, a, k = next(c for c in nhmmer_calls
                                           if c[0] == "run_findmitoscaf")
     ms, launches = _wall_ms_and_launches(
         lambda: nhmmer.nhmmer_search(contigs, profiles, *a, **k))
     _log(f"findmitoscaf's nhmmer_search of the golden run alone ({len(profiles)} "
-         f"profiles, {len(contigs)} contigs): {ms:.1f} ms, {launches} cudaLaunchKernel "
-         f"calls under torch.profiler")
+         f"profiles, {len(contigs)} contigs): {ms:.1f} ms, {launches} kernel launches "
+         f"under torch.profiler")
     rng = np.random.default_rng(seed + 13)
     for name, Mn, L, B, T in VITERBI_SHAPES:
         cons = [synth.random_genome(rng, L) for _ in range(Mn)]
@@ -1818,8 +1865,8 @@ def check_sw_kernel(dev, calls: list) -> dict:
     loop on every case of ``kernel_cases.sw_cases`` (the blastn-size one
     included) and at the golden run's largest call, each timed beside its
     bound (the plain loop too at the blastn size and the golden call); the
-    golden run's every call through the kernel once more, timed; returns
-    the numbers of the golden run's largest call."""
+    golden run's every call through the kernel once more, timed and summed;
+    returns the numbers of the golden run's largest call with the sum."""
     from mitoflex_tpu_torch.ops import sw
     from mitoflex_tpu_torch.testing import kernel_cases
 
@@ -1840,15 +1887,9 @@ def check_sw_kernel(dev, calls: list) -> dict:
     sized = [(_sw_bound(*c[:-1])[2], i) for i, c in enumerate(calls)]
     largest = calls[max(sized)[1]]
     r = _time_sw(largest[:-1], largest[-1])
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for c in calls:
-        sw.sw_align(*c[:-1], **c[-1])
-    end.record()
-    end.synchronize()
     _log(f"golden run's largest sw_align call: {_sw_line(r)}; {len(calls)} calls in the "
-         f"run, {sum(c for c, _ in sized)} cells in all, all of them through the kernel "
-         f"again back to back {start.elapsed_time(end):.3f} ms")
+         f"run, {sum(c for c, _ in sized)} cells in all")
+    r.update(_golden_replay("sw_align", calls, lambda c: sw.sw_align(*c[:-1], **c[-1])))
     return r
 
 
@@ -1941,9 +1982,10 @@ def check_cyk_kernel(dev, calls: list) -> dict:
     ``kernel_cases.cyk_cases`` (the CLEN-950 ones included) and on the
     golden run's calls, held against its plain loop on the card and on the
     CPU, with the host-banded <= kernel <= exact contract; each golden call
-    and a case of each model timed beside the plain loop and the bound; a
-    tRNA-size call's cudaLaunchKernel calls counted; returns the numbers of
-    the golden run's largest call."""
+    and a case of each model timed beside the plain loop and the bound, the
+    golden models' schedule depth printed; a tRNA-size call must make one
+    kernel launch; returns the numbers of the golden run's largest call and
+    the sum of its calls."""
     from mitoflex_tpu_torch.ops import cyk, cyk_device as cd
     from mitoflex_tpu_torch.testing import kernel_cases
 
@@ -1987,9 +2029,12 @@ def check_cyk_kernel(dev, calls: list) -> dict:
     trna = timed["trna"]
     ms, launches = _wall_ms_and_launches(lambda: cd.cyk_banded_device(*trna, dev))
     plain_ms, plain_launches = _wall_ms_and_launches(lambda: cd.cyk_banded_plain(*trna, dev))
-    _log(f"CYK tRNA-size call alone: {ms:.2f} ms on the host clock, {launches} "
-         f"cudaLaunchKernel calls under torch.profiler (the plain loop on the card: "
-         f"{plain_ms:.1f} ms, {plain_launches} calls)")
+    _log(f"CYK tRNA-size call alone: {ms:.2f} ms on the host clock, {launches} kernel "
+         f"launches under torch.profiler (the plain loop on the card: {plain_ms:.1f} ms, "
+         f"{plain_launches} launches)")
+    if launches != 1:
+        raise AssertionError(f"a tRNA-size cyk_banded_device call made {launches} kernel "
+                             f"launches, not 1")
     if not calls:
         raise AssertionError("the golden run made no cyk_banded_device call")
     out, worst, n_bit = None, 0.0, 0
@@ -1997,14 +2042,21 @@ def check_cyk_kernel(dev, calls: list) -> dict:
         err, bit, aln = _hold_cyk(args, dev, f"golden call {i}")
         worst, n_bit = max(worst, err), n_bit + bit
         r = _time_cyk(args, dev)
+        x = cd.kernel_inputs(*args, dev)
         _log(f"golden run's cyk_banded_device call {i} ({args[0].name}, score "
              f"{aln.score:.3f}, window {aln.seq_from}..{aln.seq_to}): {_cyk_line(r)}; "
-             f"maxima bit-equal to the CPU's: {bit}")
+             f"maxima bit-equal to the CPU's: {bit}; schedule depth {x.depth} of "
+             f"{x.n_states} states")
         if out is None or args[0].n_states > out["states"]:
             out = dict(r, states=args[0].n_states)
     out["max_abs_err"] = worst
     _log(f"golden run's {len(calls)} CYK calls: coordinates and argmax cells equal to the "
          f"CPU's, {n_bit} of {len(calls)} bit-equal, largest score error {worst:.2e} bits")
+    out.update(_golden_replay("cyk_banded_device", calls,
+                              lambda c: cd.cyk_banded_device(*c, dev)))
+    if out["replay_launches"] != len(calls):
+        raise AssertionError(f"{len(calls)} golden cyk_banded_device calls made "
+                             f"{out['replay_launches']} kernel launches")
     return out
 
 
@@ -2082,8 +2134,9 @@ def check_genewise_kernel(dev, calls: list) -> dict:
     ``kernel_cases.genewise_cases`` and on the golden run's calls, bit for
     bit against its plain loop on the card and on the CPU; the real-size
     case and each golden call timed beside the plain loop and the bound,
-    and one wrapper call of each golden call must make one cudaLaunchKernel;
-    returns the numbers of the golden run's largest call."""
+    and one wrapper call of each golden call must make one kernel launch;
+    returns the numbers of the golden run's largest call and the sum of its
+    calls."""
     from mitoflex_tpu_torch.ops import genewise
     from mitoflex_tpu_torch.testing import kernel_cases
 
@@ -2106,13 +2159,15 @@ def check_genewise_kernel(dev, calls: list) -> dict:
         r = _time_genewise(args, kw)
         ms, launches = _wall_ms_and_launches(lambda: genewise.genewise_align(*args, **kw))
         if launches != 1:
-            raise AssertionError(f"golden genewise call {i}: {launches} cudaLaunchKernel "
-                                 f"calls in one wrapper call, not 1")
+            raise AssertionError(f"golden genewise call {i}: {launches} kernel launches "
+                                 f"in one wrapper call, not 1")
         _log(f"golden run's genewise_align call {i}: {_genewise_line(r)}; one wrapper call "
              f"{ms:.3f} ms on the host clock (ending in a synchronise), {launches} "
-             f"cudaLaunchKernel")
+             f"kernel launch")
         if out is None or r["cells"] > out["cells"]:
             out = r
+    out.update(_golden_replay("genewise_align", calls,
+                              lambda c: genewise.genewise_align(*c[0], **c[1])))
     return out
 
 
@@ -2484,6 +2539,12 @@ def main() -> int:
                 "bound_ms": shape["bound_ms"], "bound_by": "bytes",
                 "library_ms": shape.get("library_ms")}
 
+    def golden_entry(name, source, replaces, r):
+        """A scan kernel's entry: its golden run's largest call, with that
+        run's launches and the sum of all of its calls."""
+        return dict(entry(name, source, replaces, r, [r]), bound_by=r["bound_by"],
+                    golden_launches=launches[name], golden_sum_ms=r["golden_sum_ms"])
+
     k1_entry = entry("filter_reads", "filter.cu", "filter.py:92", k1, [k1])
     k1_entry.update({k: k1[k] for k in ("raw_ms", "golden_ms", "golden_raw_ms",
                                         "golden_plain_ms", "golden_bound_ms")})
@@ -2494,16 +2555,13 @@ def main() -> int:
         entry("merge_sorted_runs_onepass", "merge.cu", "psort.py:467", k3_main,
               k3 + k3_golden),
         entry("sort_words2", "sort.cu", "psort.py:195", k4_main, k4),
-        *(dict(entry(name, "viterbi.cu", replaces, viterbi[name], [viterbi[name]]),
-               bound_by=viterbi[name]["bound_by"])
+        *(golden_entry(name, "viterbi.cu", replaces, viterbi[name])
           for name, replaces in (("viterbi_scores_multi", "phmm.py:351"),
                                  ("viterbi_scan", "phmm.py:139"))),
-        dict(entry("sw_align", "sw.cu", "sw.py:60", sw_golden, [sw_golden]),
-             bound_by=sw_golden["bound_by"]),
-        dict(entry("cyk_banded_device", "cyk.cu", "cyk_device.py:323", cyk_golden,
-                   [cyk_golden]), name="cyk_banded", bound_by=cyk_golden["bound_by"]),
-        dict(entry("genewise_align", "genewise.cu", "genewise.py:75", gw_golden,
-                   [gw_golden]), bound_by=gw_golden["bound_by"]),
+        golden_entry("sw_align", "sw.cu", "sw.py:60", sw_golden),
+        dict(golden_entry("cyk_banded_device", "cyk.cu", "cyk_device.py:323", cyk_golden),
+             name="cyk_banded"),
+        golden_entry("genewise_align", "genewise.cu", "genewise.py:75", gw_golden),
     ]}
     print(card)
     print(json.dumps(kernels_line))

@@ -159,10 +159,11 @@ def library() -> ctypes.CDLL:
             lib.mfx_genewise_align.argtypes = [vp] * 5 + [i32] * 5 \
                 + [ctypes.c_float] * 4 + [vp, vp, vp]
             lib.mfx_genewise_align.restype = i32
-            # step table, its rows, E states, their count, single5, pair5,
-            # origins and codes, S, L, W, el_selfsc, deck, output, stream
-            lib.mfx_cyk_banded.argtypes = [vp, i32, vp, i32, vp, vp, vp, i32, i32, i32,
-                                           ctypes.c_float, vp, vp, vp]
+            # step table, its rows, dispatch order, E states, their count,
+            # single5, pair5, origins and codes, S, L, W, el_selfsc, deck,
+            # output, sync buffer, epoch, stream
+            lib.mfx_cyk_banded.argtypes = [vp, i32, vp, vp, i32, vp, vp, vp, i32, i32, i32,
+                                           ctypes.c_float, vp, vp, vp, i32, vp]
             lib.mfx_cyk_banded.restype = i32
             for fn in (lib.mfx_merge_max_words, lib.mfx_merge_max_payloads,
                        lib.mfx_sort_tile_rows):

@@ -9,10 +9,11 @@ device: only the ``[S]`` block maxima and their first argmax cells come
 back to the host.
 
 On a card a call is one launch of the hand-written kernel of
-``csrc/cyk.cu`` (one thread block walks every state; at most
-``KERNEL_MAX_W`` columns a band). On the CPU it is the plain version
-``cyk_banded_plain``, a Python loop of tensor steps over the states (about
-18 eager operations a state). Both feed the same host pick
+``csrc/cyk.cu`` (one thread block on each SM takes the states in the
+dispatch order of :func:`_schedule` and runs each as soon as its children
+are done; at most ``KERNEL_MAX_W`` columns a band). On the CPU it is the
+plain version ``cyk_banded_plain``, a Python loop of tensor steps over the
+states (about 18 eager operations a state). Both feed the same host pick
 (:func:`_pick`) from their ``[S]`` maxima and argmax cells, and both
 derive their band origins from :func:`_origins`.
 
@@ -75,8 +76,9 @@ _DEAD = -3.0e4          # clipped self-loop step for invalid residues
 
 _KIND_OF = {S: 0, D: 0, ML: 1, IL: 1, MR: 2, IR: 2, MP: 3}
 
-# the widest band the kernel takes (csrc/cyk.cu kMaxW): its block and the
-# two operands of a bifurcation, 3 W^2 float32, in one SM's shared memory
+# the widest band the kernel takes (csrc/cyk.cu kMaxW): three child blocks,
+# or the two operands of a bifurcation, W^2 float32 each, in one SM's shared
+# memory
 KERNEL_MAX_W = 128
 # int32 words a scanned state takes in the kernel's step table
 # (csrc/cyk.cu kStepWords); the fields are the _W_* offsets below
@@ -87,6 +89,10 @@ _W_SELF, _W_END, _W_FLAGS = 17, 18, 19
 HAS_SELF, HAS_END = 1, 2
 
 _STATIC: dict = {}
+# per (device, stream): the kernel's sync buffer (int32: the work and done
+# counters, then one ready flag a state) and the epoch of its last call
+_SYNC: dict = {}
+_SYNC_MIN_STATES = 4096
 
 
 def _step_table(steps) -> np.ndarray:
@@ -123,6 +129,26 @@ def _step_table(steps) -> np.ndarray:
             fbits[t, _W_END] = end_sc
             table[t, _W_FLAGS] |= HAS_END
     return table
+
+
+def _schedule(table: np.ndarray, n_states: int) -> Tuple[np.ndarray, int]:
+    """The kernel's dispatch order of the step table's rows and the
+    schedule's depth. A state's level is 0 for an E state and else 1 more
+    than its children's highest; the rows go level by level, in step-table
+    order within a level, so that every child is dispatched before its
+    parent and the states of one level can run at once. The depth is the
+    number of levels (E included): the states on the longest chain of
+    children, which bounds a call from below at one state's time each."""
+    level = [0] * n_states                # E states stay at 0
+    row_level = [0] * len(table)
+    lv = level.__getitem__
+    rows = table[:, :_W_T].tolist()       # state, kind, children, B's two, kids
+    for t, row in enumerate(rows):
+        kids = row[_W_LEFT: _W_RIGHT + 1] if row[_W_KIND] < 0 else \
+            row[_W_KID: _W_KID + row[_W_NKIDS]]
+        row_level[t] = level[row[_W_V]] = 1 + max(map(lv, kids), default=-1)
+    order = np.argsort(np.asarray(row_level), kind="stable").astype(np.int32)
+    return order, 1 + max(level, default=-1)
 
 
 def _model_static(model, local: bool, dev: torch.device) -> dict:
@@ -424,6 +450,8 @@ def cyk_banded_plain(
 class KernelInputs(NamedTuple):
     """What one launch of the kernel of ``csrc/cyk.cu`` reads."""
     step_table: torch.Tensor   # [n_scan, STEP_WORDS] int32, on the device
+    order: torch.Tensor        # [n_scan] int32 step rows in dispatch order (_schedule)
+    depth: int                 # the schedule's depth, in states
     e_states: torch.Tensor     # [n_E] int32
     single5: torch.Tensor      # [S, 5] float32
     pair5: torch.Tensor        # [S, 25] float32
@@ -476,11 +504,33 @@ def kernel_inputs(
     st = _model_static(model, local, dev)
     o_i, o_j = _origins(st, L, anchor, slack)
     if "step_table" not in st:          # built at the first kernel call of a model
-        st["step_table"] = torch.from_numpy(_step_table(st["steps"])).to(dev)
+        table = _step_table(st["steps"])
+        order, st["depth"] = _schedule(table, model.n_states)
+        st["step_table"] = torch.from_numpy(table).to(dev)
+        st["order"] = torch.from_numpy(order).to(dev)
     geo = np.concatenate([o_i, o_j, _padded_codes(window, W)]).astype(np.int32)
     el = float(np.float32(st["lc"].el_selfsc)) if local else 0.0
-    return KernelInputs(st["step_table"], st["e_states"], st["single5"], st["pair5"],
-                        torch.from_numpy(geo).to(dev), model.n_states, L, W, el, o_i, o_j)
+    return KernelInputs(st["step_table"], st["order"], st["depth"], st["e_states"],
+                        st["single5"], st["pair5"], torch.from_numpy(geo).to(dev),
+                        model.n_states, L, W, el, o_i, o_j)
+
+
+def _sync_buffer(dev: torch.device, n_states: int) -> Tuple[torch.Tensor, int]:
+    """The kernel's sync buffer on ``dev`` for the current stream and this
+    call's epoch. The buffer holds the work and done counters, which the
+    kernel's last block sets back to 0, then a ready flag a state, which a
+    state's block sets to the epoch of the call: it is zeroed once, when it
+    is made (or outgrown), and every call takes the next epoch, so no call
+    clears it and a call stays one launch. Calls on one stream run in turn;
+    two streams get two buffers."""
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    hit = _SYNC.get(key)
+    if hit is None or hit[0].numel() < 2 + n_states or hit[1] >= 2**31 - 1:
+        n = max(_SYNC_MIN_STATES, 2 * n_states)
+        hit = [torch.zeros(2 + n, dtype=torch.int32, device=dev), 0]
+        _SYNC[key] = hit
+    hit[1] += 1
+    return hit[0], hit[1]
 
 
 def cyk_banded_maxima(
@@ -503,11 +553,12 @@ def cyk_banded_maxima(
     S, W = x.n_states, x.W
     deck = torch.empty((S, W, W), dtype=torch.float32, device=dev)
     out = torch.empty((2, S), dtype=torch.int32, device=dev)
+    sync, epoch = _sync_buffer(dev, S)
     err = kernels.launch(
         dev, kernels.library().mfx_cyk_banded, x.step_table.data_ptr(),
-        x.step_table.shape[0], x.e_states.data_ptr(), x.e_states.shape[0],
-        x.single5.data_ptr(), x.pair5.data_ptr(), x.geo.data_ptr(), S, x.L, W,
-        x.el_selfsc, deck.data_ptr(), out.data_ptr())
+        x.step_table.shape[0], x.order.data_ptr(), x.e_states.data_ptr(),
+        x.e_states.shape[0], x.single5.data_ptr(), x.pair5.data_ptr(), x.geo.data_ptr(), S,
+        x.L, W, x.el_selfsc, deck.data_ptr(), out.data_ptr(), sync.data_ptr(), epoch)
     if err:
         kernels.check(err, "cyk_banded_device")
     cyk_banded_device.launches += 1

@@ -595,6 +595,11 @@ def _consensus_walk(
     return "".join("ACGT"[int(v[o].argmax())] for o in range(ext_len))
 
 
+# round 1's candidate reads are kept for later rounds of local_extend while
+# they fit this many bytes; past it later rounds re-stream the reads
+CAND_BUDGET_BYTES = 256 << 20
+
+
 def _extend_ends(
     contigs: List[Contig],
     read_source,
@@ -611,7 +616,10 @@ def _extend_ends(
     overhanging the 5' end (negative unclamped start) on the bases before it
     (in reverse-complement coordinates, so one consensus walk serves both).
     Only 512 bp windows at the contig ends are indexed: a read mapping
-    strictly inside never votes."""
+    strictly inside never votes. With ``collect_candidates`` the reads a
+    later round must re-map are returned as (seqs, lengths) batches, or None
+    once their bytes passed CAND_BUDGET_BYTES: collection stops there and
+    drops what it had kept."""
     if not contigs:
         return contigs, False, ([] if collect_candidates else None)
     WD = 512
@@ -639,6 +647,7 @@ def _extend_ends(
     candidates: Optional[List[Tuple[np.ndarray, np.ndarray]]] = (
         [] if collect_candidates else None
     )
+    cand_bytes = 0
     for seqs, lengths in read_source():
         m = mapper_ops.map_batch(index, seqs, lengths, min_votes=2, mesh=mesh)
         mapped = m.contig >= 0
@@ -653,6 +662,9 @@ def _extend_ends(
             keep = ~mapped | (ro_all > 0) | (start_all < 0)
             if keep.any():
                 candidates.append((seqs[keep], lengths[keep]))
+                cand_bytes += candidates[-1][0].nbytes
+                if cand_bytes > CAND_BUDGET_BYTES:
+                    candidates = None
         for b in sel:
             ci = int(ci_all[b])
             clen = len(contigs[ci].seq)
@@ -701,15 +713,15 @@ def local_extend(
     """Local assembly of contig ends (megahit `local` analog): both ends
     grow from one mapping sweep per round while a clear consensus with
     enough support exists. Rounds after the first re-map only round 1's
-    candidate reads (end-voters + unmapped) when they fit the memory
-    budget."""
+    candidate reads (end-voters + unmapped) when they fit
+    CAND_BUDGET_BYTES; collection stops as soon as they pass it, and those
+    rounds re-stream every read instead."""
     source = read_source
     if read_stride > 1:
         def source():
             for seqs, lengths in read_source():
                 yield seqs[::read_stride], lengths[::read_stride]
 
-    CAND_BUDGET_BYTES = 256 << 20
     cached: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None
     for rnd in range(max_rounds):
         if rnd == 0 or cached is None:
@@ -727,8 +739,7 @@ def local_extend(
             mesh=mesh,
         )
         if cand is not None:
-            if sum(s.nbytes for s, _ in cand) <= CAND_BUDGET_BYTES:
-                cached = cand
+            cached = cand
         if not changed:
             break
     return contigs

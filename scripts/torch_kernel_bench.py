@@ -1,8 +1,8 @@
 """Check and time the port's kernels (K1 read filter, K2 and K3 merges, K4
-sort) on one GPU.
+sort, C1 banded CYK) on one GPU.
 
     python3 scripts/torch_kernel_bench.py [--repo DIR] [--check] [--time]
-                                          [--kernels K1,K2,K3,K4]
+                                          [--kernels K1,K2,K3,K4,C1]
                                           [--shapes FILE] [--label NAME]
                                           [--out FILE]
 
@@ -27,13 +27,23 @@ key plus the gather. K1 is timed at 65536 x 256 and at the golden batch
 and also gets ``raw_ms``: the launcher called 20 times on preallocated
 outputs between one pair of events, the device's own time a launch.
 ``--shapes FILE`` adds K2 shapes from a JSON list of
-``[na, nb, W]`` (the runs a pipeline run really merged). The card's name and
-power limit are printed first.
+``[na, nb, W]`` (the runs a pipeline run really merged). C1 (only when
+``--kernels`` names it) is timed at the golden run's shapes through the
+public wrapper ``ops.cyk_device.cyk_banded_device``: seeded fixture rRNA
+models of CLEN 950 and 1100 (``testing/cm_fixture.rrna_cm``), their
+consensus inside 64 random bases on each side (windows of 1078 and 1228
+nt), slack 48 (W 98), local mode; each call's median, min and max over
+CYK_REPEATS calls, its bound (every W x W block written once, with the
+inputs and outputs, at 3.35 TB/s) and, where the checkout has it, the
+schedule's depth; with ``--check``, every case of
+``kernel_cases.cyk_cases`` against the plain version on the CPU first. The
+card's name and power limit are printed first.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import subprocess
@@ -46,6 +56,12 @@ HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
 
 
 def cuda_ms(fn, repeats: int = 20) -> float:
+    return float(np.median(cuda_times(fn, repeats)))
+
+
+def cuda_times(fn, repeats: int) -> list:
+    """Milliseconds of each of ``repeats`` calls of fn(), each between two
+    events, after three warm-up calls."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -58,7 +74,7 @@ def cuda_ms(fn, repeats: int = 20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
 
 
 def cuda_ms_back_to_back(fn, calls: int = 20, repeats: int = 5) -> float:
@@ -185,6 +201,67 @@ def time_shapes(psort, dev, label: str, extra_k2, out_path=None,
         torch.cuda.empty_cache()
 
 
+CYK_REPEATS = 9
+CYK_SEED = 2029
+
+
+def cyk_golden_calls():
+    """(model, window codes, anchor) at the golden run's two banded-CYK
+    shapes, from CYK_SEED."""
+    from mitoflex_tpu_torch.io import encoding
+    from mitoflex_tpu_torch.models import cm as cm_models
+    from mitoflex_tpu_torch.testing import cm_fixture
+
+    rng = np.random.default_rng(CYK_SEED)
+    for clen in (950, 1100):
+        fx = cm_fixture.rrna_cm(f"bench_{clen}", rng, clen)
+        model = cm_models.parse_cm_text(io.StringIO(fx.text))[0]
+        flanks = ["".join("ACGT"[int(i)] for i in rng.integers(0, 4, 64)) for _ in range(2)]
+        window = np.asarray(encoding.encode(flanks[0] + fx.consensus + flanks[1]))
+        yield model, window, (64, 64 + clen - 1, 0, clen - 1)
+
+
+def check_cyk(dev) -> int:
+    """Every ``kernel_cases.cyk_cases`` case through the kernel against the
+    plain version on the CPU (coordinates and argmax cells exact, scores
+    within ``check_cyk``'s tolerance); returns the number bit-equal."""
+    from mitoflex_tpu_torch.ops import cyk_device as cd
+    from mitoflex_tpu_torch.testing import kernel_cases
+
+    bit = 0
+    for c in kernel_cases.cyk_cases():
+        model = kernel_cases.cyk_model(c.model_key)
+        got = cd.cyk_banded_maxima(model, c.window, c.anchor, c.slack, c.local, dev)
+        want = cd.cyk_banded_maxima_plain(model, c.window, c.anchor, c.slack, c.local, "cpu")
+        kernel_cases.check_cyk(got, want, c.name)
+        bit += bool(np.array_equal(got.m.view(np.int32), want.m.view(np.int32)))
+    return bit
+
+
+def time_cyk(dev, label: str, out_path=None) -> None:
+    """C1 at the golden run's two shapes, one wrapper call between two
+    events, CYK_REPEATS calls after a warm-up."""
+    from mitoflex_tpu_torch.ops import cyk_device as cd
+
+    emit = _emitter(label, out_path)
+    for model, window, anchor in cyk_golden_calls():
+        def call():
+            return cd.cyk_banded_device(model, window, anchor, 48, True, dev)
+
+        want = cd.cyk_banded_maxima_plain(model, window, anchor, 48, True, "cpu")
+        got = cd.cyk_banded_maxima(model, window, anchor, 48, True, dev)
+        bit = bool(np.array_equal(got.m.view(np.int32), want.m.view(np.int32))
+                   and np.array_equal(got.a, want.a))
+        times = cuda_times(call, CYK_REPEATS)
+        x = cd.kernel_inputs(model, window, anchor, 48, True, dev)
+        inputs = sum(t.numel() * t.element_size()
+                     for t in (x.step_table, x.e_states, x.single5, x.pair5, x.geo))
+        emit(kernel="C1", states=x.n_states, W=x.W, L=x.L, ms=float(np.median(times)),
+             min_ms=min(times), max_ms=max(times),
+             bound_ms=(4 * x.W * x.W * x.n_states + inputs + 8 * x.n_states)
+             / HBM_BYTES_PER_MS, depth=getattr(x, "depth", None), bit_equal_to_cpu=bit)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
@@ -192,7 +269,7 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--kernels", default="K1,K2,K3,K4",
-                    help="comma-separated subset of K1,K2,K3,K4 to time")
+                    help="comma-separated subset of K1,K2,K3,K4,C1 to check and time")
     ap.add_argument("--shapes", default=None)
     ap.add_argument("--label", default="change")
     ap.add_argument("--out", default=None,
@@ -212,7 +289,11 @@ def main() -> int:
     print(f"{args.label}: kernels built in {kernels.last_build_seconds:.2f} s from "
           f"{args.repo}", flush=True)
     dev = torch.device("cuda")
-    if args.check:
+    which = tuple(args.kernels.split(","))
+    if args.check and "C1" in which:
+        print(f"check: C1 on every cyk_cases case, coordinates and argmax cells equal to "
+              f"the CPU plain version, {check_cyk(dev)} bit-equal", flush=True)
+    if args.check and set(which) & {"K1", "K2", "K3", "K4"}:
         from mitoflex_tpu_torch.testing import kernel_cases
 
         print(f"check: {kernel_cases.check_wrappers(dev)} cases equal to the plain "
@@ -228,10 +309,11 @@ def main() -> int:
                 extra = json.load(f)
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        which = tuple(args.kernels.split(","))
         if "K1" in which:
             time_filter(dev, args.label, args.out)
         time_shapes(psort, dev, args.label, extra, args.out, which)
+        if "C1" in which:
+            time_cyk(dev, args.label, args.out)
     return 0
 
 

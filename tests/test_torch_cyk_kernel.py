@@ -13,6 +13,7 @@ model sums them in the kernel's order and must give the plain version's
 maxima bit for bit.
 """
 
+import inspect
 import io
 import os
 import re
@@ -24,6 +25,7 @@ import torch
 from mitoflex_tpu.models import cm as jax_cm
 from mitoflex_tpu.ops import cyk_device as jax_dev
 from mitoflex_tpu_torch import kernels
+from mitoflex_tpu_torch.models import cmsearch
 from mitoflex_tpu_torch.ops import cyk, cyk_device
 from mitoflex_tpu_torch.testing import kernel_cases
 
@@ -56,11 +58,13 @@ def test_cyk_cases_match_jax(case, jax_models):
         assert got is not None and host.score <= got.score + kernel_cases.CYK_SCORE_TOL
 
 
-def _kernel_model(x):
+def _kernel_model(x, order=None):
     """numpy model of csrc/cyk.cu's order: the step table, E states, tables
-    and origins it reads, every sum a float32 operation, the prefix sums
-    left to right in float64 rounded to float32 each, a state's maximum and
-    first argmax. Returns (m, a)."""
+    and origins it reads, the E states first and then the step rows in the
+    dispatch order (``order``, else the kernel's own, ``x.order``), every
+    sum a float32 operation, the prefix sums left to right in float64
+    rounded to float32 each, a state's maximum and first argmax. Returns
+    (m, a)."""
     S, L, W = x.n_states, x.L, x.W
     steps = x.step_table.numpy()
     fsteps = steps.view(np.float32)
@@ -85,11 +89,17 @@ def _kernel_model(x):
         inside = (rr >= 0) & (rr < W) & (cc >= 0) & (cc < W)
         return np.where(inside, deck[child][rr.clip(0, W - 1), cc.clip(0, W - 1)], NEG)
 
+    done = np.zeros(S, bool)
     for v in x.e_states.numpy():
         deck[v] = np.where((o_i[v] + r == o_j[v] + c) & (o_j[v] + c <= L), np.float32(0), NEG)
         m[v], a[v] = deck[v].max(), int(np.argmax(deck[v]))
-    for row, frow in zip(steps, fsteps):
+        done[v] = True
+    for t in (x.order.numpy() if order is None else order):
+        row, frow = steps[t], fsteps[t]
         v, kind = row[cyk_device._W_V], row[cyk_device._W_KIND]
+        # the kernel waits for these flags: every child is done
+        assert done[_children(row)].all()
+        done[v] = True
         oiv, ojv = o_i[v], o_j[v]
         if kind < 0:
             lch, rch = row[cyk_device._W_LEFT], row[cyk_device._W_RIGHT]
@@ -141,6 +151,107 @@ def _kernel_model(x):
                     x_[:, cc] = run + pre[cc]
         finish(v, x_)
     return m, a
+
+
+def _children(row):
+    """The states a step row's state reads: a B state's two children, or a
+    regular state's children (its self-loop aside)."""
+    if row[cyk_device._W_KIND] < 0:
+        return [row[cyk_device._W_LEFT], row[cyk_device._W_RIGHT]]
+    return list(row[cyk_device._W_KID: cyk_device._W_KID + row[cyk_device._W_NKIDS]])
+
+
+def _levels(model):
+    """Each state's level, from the model's own tables (not the step
+    table): 0 for an E state, else 1 more than the highest level of the
+    states it reads (a B state's two children, a regular state's children
+    but itself), found by a depth-first walk from every state."""
+    from mitoflex_tpu_torch.models.cm import B, E
+
+    level = {}
+
+    def walk(v):
+        stack = [v]
+        while stack:
+            u = stack[-1]
+            if u in level:
+                stack.pop()
+                continue
+            if model.stype[u] == E:
+                kids = []
+            elif model.stype[u] == B:
+                kids = [int(model.cfirst[u]), int(model.cnum[u])]
+            else:
+                kids = [k for k in range(int(model.cfirst[u]),
+                                         int(model.cfirst[u]) + int(model.cnum[u])) if k != u]
+            todo = [k for k in kids if k not in level]
+            if todo:
+                stack.extend(todo)
+            else:
+                level[u] = 1 + max((level[k] for k in kids), default=-1)
+                stack.pop()
+
+    for v in range(model.n_states):
+        walk(v)
+    return np.array([level[v] for v in range(model.n_states)])
+
+
+SCHEDULE_MODELS = [("trna", False), ("trna", True), ("rrna_180", False), ("rrna_180", True),
+                   ("rrna_950", True)]
+
+
+@pytest.mark.parametrize("key,local", SCHEDULE_MODELS,
+                         ids=[f"{k} {'local' if lc else 'glocal'}" for k, lc in SCHEDULE_MODELS])
+def test_dispatch_order_is_topological_and_complete(key, local):
+    """The kernel takes the E states and then the step rows in its dispatch
+    order: every state comes once, and every child before its parent."""
+    model = kernel_cases.cyk_model(key)
+    st = cyk_device._model_static(model, local, torch.device("cpu"))
+    table = cyk_device._step_table(st["steps"])
+    order, depth = cyk_device._schedule(table, model.n_states)
+    assert order.dtype == np.int32 and sorted(order.tolist()) == list(range(len(table)))
+    e = st["e_states"].numpy()
+    states = np.concatenate([e, table[order, cyk_device._W_V]])
+    assert sorted(states.tolist()) == list(range(model.n_states))
+    pos = np.empty(model.n_states, np.int64)
+    pos[states] = np.arange(model.n_states)
+    for t in order:
+        assert (pos[_children(table[t])] < pos[table[t, cyk_device._W_V]]).all()
+    # level by level: a row never comes after a row of a higher level
+    lv = _levels(model)
+    assert (np.diff(lv[table[order, cyk_device._W_V]]) >= 0).all()
+    assert depth == lv.max() + 1
+
+
+def test_schedule_depth_is_the_level_count():
+    """The CLEN-950 fixture model (the golden run's size): the schedule's
+    depth equals the levels counted from the model's tables, and is a
+    small share of its states, which is what the kernel's dataflow gains."""
+    model = kernel_cases.cyk_model("rrna_950")
+    x = cyk_device.kernel_inputs(model, np.zeros(1078, np.int64), (64, 1013, 0, 949), 48, True,
+                                 "cpu")
+    lv = _levels(model)
+    assert x.depth == len(np.unique(lv)) == lv.max() + 1
+    assert x.depth < model.n_states // 5
+    assert (np.bincount(lv) >= 1).all()
+
+
+@pytest.mark.parametrize("case", range(len(CASES)), ids=IDS)
+def test_kernel_model_in_another_topological_order_is_bit_equal(case):
+    """The dataflow runs a level's states in any order and at once: the
+    numpy model of the kernel run level by level with each level reversed
+    gives the plain version's maxima bit for bit and its argmax cells."""
+    c = CASES[case]
+    model = kernel_cases.cyk_model(c.model_key)
+    want = cyk_device.cyk_banded_maxima_plain(model, c.window, c.anchor, c.slack, c.local,
+                                              device="cpu")
+    x = cyk_device.kernel_inputs(model, c.window, c.anchor, c.slack, c.local, "cpu")
+    lv = _levels(model)[x.step_table.numpy()[:, cyk_device._W_V]]
+    other = np.concatenate([np.flatnonzero(lv == k)[::-1] for k in np.unique(lv)])
+    assert not np.array_equal(other, x.order.numpy())
+    m, a = _kernel_model(x, other)
+    assert np.array_equal(m.view(np.int32), want.m.view(np.int32))
+    assert np.array_equal(a, want.a)
 
 
 @pytest.mark.parametrize("case", range(len(CASES)), ids=IDS)
@@ -336,7 +447,10 @@ def test_kernel_source_is_in_the_library():
     assert "cyk.cu" in kernels.SOURCES
     with open(os.path.join(kernels.CSRC_DIR, "cyk.cu")) as f:
         src = f.read()
-    assert re.search(r'extern "C" int mfx_cyk_banded\(', src)
+    assert re.search(r'extern "C" int mfx_cyk_banded\(const void\* steps, int n_scan, '
+                     r'const void\* order,\s+const void\* e_states, int n_e, .*'
+                     r'void\* deck, void\* out, void\* sync, int epoch,\s+void\* stream\)',
+                     src, re.S)
     assert re.search(rf"constexpr int kMaxW = {cyk_device.KERNEL_MAX_W};", src)
     assert re.search(rf"constexpr int kStepWords = {cyk_device.STEP_WORDS};", src)
     assert re.search(rf"constexpr int kMaxKids = {cyk_device.MAX_KIDS};", src)
@@ -348,6 +462,36 @@ def test_kernel_source_is_in_the_library():
         "kWSelf": cyk_device._W_SELF, "kWEnd": cyk_device._W_END,
         "kWFlags": cyk_device._W_FLAGS}
     assert "--use_fast_math" not in " ".join(kernels.compile_command("cyk.cu", "x.o"))
-    # the block and the two bifurcation operands fit one SM's shared memory
-    assert (3 * cyk_device.KERNEL_MAX_W ** 2 + 5 * cyk_device.KERNEL_MAX_W) * 4 <= 232448
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    # an E state's kind is none of the step table's (-1 for B, 0 to 3)
+    assert consts["kKindE"] not in range(-1, 4)
+    # a thread's rows cover every band width the kernel takes, and a B
+    # state's tiles its cells at the widest
+    for W in range(2, cyk_device.KERNEL_MAX_W + 1):
+        assert (consts["kThreads"] // W) * consts["kMaxRows"] >= W
+    assert (consts["kMaxW"] // consts["kTile"]) ** 2 == consts["kThreads"]
+    # shared memory (smem_bytes): as many whole child blocks as fit in the
+    # opt-in limit beside the static shared memory and two W-vectors, up to
+    # a state's most children; the golden width takes all of them at once,
+    # the widest three, and the B operands fit in either
+    optin, static = 232448, 1024
+    for W, want in ((26, 6), (98, 6), (cyk_device.KERNEL_MAX_W, 3)):
+        slots = min(cyk_device.MAX_KIDS, (optin - static - 8 * W) // (4 * W * W))
+        P = (W + 3) // 4 * 4
+        region = max(slots * W * W, 2 * P * P, W * W + consts["kThreads"])
+        assert slots == want and (region + 2 * W) * 4 + static <= optin
     assert kernels._lib is None
+
+
+def test_rrna_width_instantiation_is_the_refine_width():
+    """The kernel's own instantiation for the rRNA refine (kRrnaW, every
+    stride an immediate) is the band width at the refine's default slack, so
+    a change of that default fails here rather than moving every rRNA call
+    to the slower any-width instantiation."""
+    with open(os.path.join(kernels.CSRC_DIR, "cyk.cu")) as f:
+        src = f.read()
+    slack = inspect.signature(cmsearch._cyk_banded_refine).parameters["slack"].default
+    want = cyk_device.check_kernel_width(slack)
+    assert re.search(rf"constexpr int kRrnaW = {want};", src)
+    assert "const bool rrna = W == kRrnaW;" in src
+    assert "rrna ? cyk_kernel<kRrnaRows, kRrnaW>" in src
