@@ -126,14 +126,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    the single-device walls of this run.
 13. The two Viterbi passes of mitoflex_tpu_torch/csrc/viterbi.cu (run
    right after phase 7) against their plain loops: on every seeded case of
-   ``kernel_cases.viterbi_cases`` at delete bands 16, 10 and 0 (scores
-   bit-equal, every coordinate exact), at the golden run's largest call of
-   each pass, and at the shapes of the golden run's largest searches (22
-   tRNA-size models at Lp 128, the rRNA sizes at Lp 1024 and 2048, 512
-   windows of 4096; the envelope scan at Lp 2048 on 64 windows of 4096),
-   each timed beside its plain loop and its bound: the float32 operations
-   that the call's cells need at 67 TFLOP/s, or its bytes once at 3.35
-   TB/s where that is larger; then findmitoscaf's ``nhmmer_search`` call of
+   ``kernel_cases.viterbi_cases`` at delete bands 16, 10 and 0 and at every
+   layout ``ops.phmm.viterbi_config`` can pick for the case's width (a
+   private ``_config`` keyword of the wrappers forces each; scores
+   bit-equal, every coordinate exact), the chooser's shared-memory formula
+   against the library's; at the golden run's largest call of each pass,
+   and at the shapes of the golden run's largest searches (22 tRNA-size
+   models at Lp 128, the rRNA sizes at Lp 1024 and 2048, 512 windows of
+   4096; the envelope scan at Lp 2048 on 64 windows of 4096), each timed
+   beside its plain loop and its bound (the float32 operations that the
+   call's cells need at 67 TFLOP/s, or its bytes once at 3.35 TB/s where
+   that is larger) with its layout and ns a step (ms over the longest
+   row's steps); every golden call replayed, one line each (shape, layout,
+   ms, ns a step), its shape written to ``viterbi_golden_calls.json`` in
+   the run's directory; then findmitoscaf's ``nhmmer_search`` call of
    phase 6 again, alone, with its kernel launches counted under
    torch.profiler.
 14. The Smith-Waterman kernel of mitoflex_tpu_torch/csrc/sw.cu (run right
@@ -1570,20 +1576,25 @@ def _wall_ms_and_launches(fn, count_launches: bool = True):
 GOLDEN_REPEATS = 3
 
 
-def _golden_replay(name: str, calls: list, run) -> dict:
+def _golden_replay(name: str, calls: list, run, describe=None) -> dict:
     """Every call the golden run made of kernel ``name`` through its wrapper
     again (``run(call)``): the launches of one replay of them all on the
     wrapper's own counter (``replay_launches``, which only phase 15's check
     reads), and the sum over the calls of each call's median of
     GOLDEN_REPEATS CUDA-event-timed calls after a warm-up
-    (``golden_sum_ms``)."""
+    (``golden_sum_ms``); ``describe(call, ms)``, where given, is logged for
+    every call."""
     counter = _launch_counters()[name]
     before = counter.launches
     for c in calls:
         run(c)
     torch.cuda.synchronize()
     launches = counter.launches - before
-    total = sum(_cuda_ms(lambda: run(c), GOLDEN_REPEATS) for c in calls)
+    times = [_cuda_ms(lambda: run(c), GOLDEN_REPEATS) for c in calls]
+    if describe is not None:
+        for i, (c, ms) in enumerate(zip(calls, times)):
+            _log(f"  {name} golden call {i}: {describe(c, ms)}")
+    total = sum(times)
     _log(f"golden run's {len(calls)} {name} calls replayed: {launches} kernel launches, "
          f"{total:.4f} ms summed (each call's median of {GOLDEN_REPEATS})")
     return {"golden_calls": len(calls), "replay_launches": launches, "golden_sum_ms": total}
@@ -1723,6 +1734,7 @@ def _time_viterbi(name, prof, lens, seqs, lengths, band, repeats: int = 5) -> di
             return (fn(prof, lens, seqs, lengths, band),)
         kernel, plain = phmm.viterbi_scores_multi, phmm.viterbi_scores_multi_plain
     ms = _cuda_ms(lambda: run(kernel), repeats)
+    layout = _viterbi_layout(name, prof, lens, seqs, band)
     got = run(kernel)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1735,38 +1747,86 @@ def _time_viterbi(name, prof, lens, seqs, lengths, band, repeats: int = 5) -> di
                                  f"{list(seqs.shape)}, Lp {prof.msc.shape[-2]}")
     bound, by, cells = _viterbi_bound(name, prof, lens, seqs, lengths, band)
     return {"ms": ms, "plain_ms": start.elapsed_time(end), "bound_ms": bound,
-            "bound_by": by, "cells": cells, "max_abs_err": 0.0,
+            "bound_by": by, "cells": cells, "max_abs_err": 0.0, "layout": layout,
+            "ns_step": ms * 1e6 / _longest_row(seqs, lengths),
             "shape": f"{len(lens)} x Lp {prof.msc.shape[-2]}, {seqs.shape[0]} x T "
                      f"{seqs.shape[1]}"}
 
 
 def _viterbi_line(name, r) -> str:
-    return (f"{name} at {r['shape']} ({r['cells']} cells): kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.1f} ms ({r['plain_ms'] / r['ms']:.0f}x), bound "
-            f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}%"
-            f" of it), bit-equal")
+    return (f"{name} at {r['shape']} ({r['cells']} cells), layout {r['layout']}: kernel "
+            f"{r['ms']:.4f} ms, {r['ns_step']:.1f} ns a step, plain {r['plain_ms']:.1f} ms "
+            f"({r['plain_ms'] / r['ms']:.0f}x), bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of it), bit-equal")
 
 
-def check_viterbi_kernels(dev, calls: dict, nhmmer_calls: list, seed: int) -> dict:
+def _viterbi_layout(name, prof, lens, seqs, band) -> tuple:
+    """The layout ``viterbi_config`` picks for a call on this card."""
+    from mitoflex_tpu_torch.ops import phmm
+
+    scan = name == "viterbi_scan"
+    return tuple(phmm.viterbi_config(
+        prof.msc.shape[-2], len(lens) * seqs.shape[0],
+        phmm.closure_window(band, scores=not scan), scan,
+        torch.cuda.get_device_properties(seqs.device).multi_processor_count))
+
+
+def _longest_row(seqs, lengths) -> int:
+    """Steps of the call's longest row: its time is that row's chain."""
+    return max(1, int(lengths.to(torch.int64).clamp(0, seqs.shape[1]).max()))
+
+
+def _viterbi_call_shape(name, c) -> dict:
+    """A recorded call's shape: enough to replay its kernel time on seeded
+    data (the time depends on the shape, the model lengths and the rows'
+    lengths, not on the scores)."""
+    prof, lens, seqs, lengths, band = _viterbi_args(name, c)
+    return {"pass": name, "models": len(lens), "Lp": int(prof.msc.shape[-2]),
+            "model_lens": lens, "B": int(seqs.shape[0]), "T": int(seqs.shape[1]),
+            "band": int(band), "lengths": [int(x) for x in lengths.tolist()]}
+
+
+def check_viterbi_kernels(dev, calls: dict, nhmmer_calls: list, seed: int,
+                          out_dir: str) -> dict:
     """Phase 13: both Viterbi passes of csrc/viterbi.cu against their plain
-    loops on the seeded cases, at the golden run's largest call of each pass
-    and at the shapes of VITERBI_SHAPES; findmitoscaf's ``nhmmer_search``
-    call of the golden run again, alone, with its eager launches counted;
-    returns, per pass, the numbers of its largest golden call with the
-    largest error seen."""
+    loops on the seeded cases at every layout the chooser can pick, at the
+    golden run's largest call of each pass and at the shapes of
+    VITERBI_SHAPES; every golden call replayed (shape, layout, ms, ns a
+    step) and its shape written to ``out_dir/viterbi_golden_calls.json``
+    (what ``scripts/torch_kernel_bench.py --viterbi-calls`` replays);
+    findmitoscaf's ``nhmmer_search`` call of the golden run again, alone,
+    with its eager launches counted; returns, per pass, the numbers of its
+    largest golden call with the largest error seen."""
     from mitoflex_tpu_torch.io import encoding
     from mitoflex_tpu_torch.models import nhmmer
     from mitoflex_tpu_torch.models.hmm import profile_from_consensus
     from mitoflex_tpu_torch.ops import phmm
     from mitoflex_tpu_torch.testing import kernel_cases, synth
 
+    from mitoflex_tpu_torch import kernels
+
     t0 = time.perf_counter()
-    n = kernel_cases.check_viterbi(dev)
+    n, n_calls = kernel_cases.check_viterbi(dev)
     torch.cuda.synchronize()
     _log(f"Viterbi kernels on {n} seeded (case, band) pairs (bands "
-         f"{kernel_cases.VITERBI_BANDS}; Lp 64 to 2048, L < Lp and L = Lp, 0.5-bit "
-         f"scores, one window, rows of length 0 and of N): scores bit-equal, "
-         f"coordinates exact ({time.perf_counter() - t0:.2f} s)")
+         f"{kernel_cases.VITERBI_BANDS}; Lp 64 to 8192, L < Lp and L = Lp, model lengths "
+         f"at stage and cluster-block edges, ties across them, 0.5-bit scores, one "
+         f"window, rows of length 0 and of N), {n_calls} kernel calls at every layout "
+         f"the chooser can pick: scores bit-equal, coordinates exact "
+         f"({time.perf_counter() - t0:.2f} s)")
+    lib = kernels.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for Lp in (64, 128, 256, 1024, 2048, 4096, 8192):
+        for W, scan in ((0, True), (2, False), (16, False), (16, True), (128, True)):
+            for cfg in phmm.viterbi_configs(Lp, W, scan, sms):
+                want = phmm.kernel_smem_bytes(cfg, W, scan)
+                got = lib.mfx_viterbi_smem_bytes(cfg.warps, cfg.rows, cfg.depth, W, int(scan))
+                if got != want:
+                    raise AssertionError(f"shared memory of layout {tuple(cfg)} at window "
+                                         f"{W}: the kernel's {got}, the chooser's {want}")
+    with open(os.path.join(out_dir, "viterbi_golden_calls.json"), "w") as f:
+        json.dump([_viterbi_call_shape(name, c) for name, recorded in calls.items()
+                   for c in recorded], f)
     out = {}
     for name, recorded in calls.items():
         args = [_viterbi_args(name, c) for c in recorded]
@@ -1776,8 +1836,14 @@ def check_viterbi_kernels(dev, calls: dict, nhmmer_calls: list, seed: int) -> di
         out[name] = r
         _log(f"golden run's largest {_viterbi_line(name, r)}; {len(recorded)} calls "
              f"in the run, {total} cells in all")
+        def describe(c, ms, name=name):
+            prof, lens, seqs, lengths, band = _viterbi_args(name, c)
+            return (f"{len(lens)} x Lp {prof.msc.shape[-2]}, {seqs.shape[0]} x T "
+                    f"{seqs.shape[1]}, layout {_viterbi_layout(name, prof, lens, seqs, band)}: "
+                    f"{ms:.4f} ms, {ms * 1e6 / _longest_row(seqs, lengths):.1f} ns a step")
+
         r.update(_golden_replay(name, recorded, lambda c, fn=getattr(phmm, name):
-                                fn(c[0], *c[1:-1], **c[-1])))
+                                fn(c[0], *c[1:-1], **c[-1]), describe))
     stage, contigs, profiles, a, k = next(c for c in nhmmer_calls
                                           if c[0] == "run_findmitoscaf")
     ms, launches = _wall_ms_and_launches(
@@ -2498,7 +2564,7 @@ def main() -> int:
         del passes, merges
         viterbi = phase("13 Viterbi", check_viterbi_kernels, dev,
                         golden.pop("viterbi_calls"), golden.pop("nhmmer_calls"),
-                        args.seed)
+                        args.seed, tmp)
         sw_golden = phase("14 SW", check_sw_kernel, dev, golden.pop("sw_calls"))
         cyk_golden = phase("15 CYK", check_cyk_kernel, dev, golden.pop("cyk_calls"))
         gw_golden = phase("16 genewise", check_genewise_kernel, dev,
@@ -2556,8 +2622,8 @@ def main() -> int:
               k3 + k3_golden),
         entry("sort_words2", "sort.cu", "psort.py:195", k4_main, k4),
         *(golden_entry(name, "viterbi.cu", replaces, viterbi[name])
-          for name, replaces in (("viterbi_scores_multi", "phmm.py:351"),
-                                 ("viterbi_scan", "phmm.py:139"))),
+          for name, replaces in (("viterbi_scores_multi", "phmm.py:352"),
+                                 ("viterbi_scan", "phmm.py:140"))),
         golden_entry("sw_align", "sw.cu", "sw.py:60", sw_golden),
         dict(golden_entry("cyk_banded_device", "cyk.cu", "cyk_device.py:323", cyk_golden),
              name="cyk_banded"),

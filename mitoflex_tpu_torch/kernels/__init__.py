@@ -37,6 +37,12 @@ SOURCES = ("filter.cu", "merge.cu", "sort.cu", "viterbi.cu", "sw.cu", "cyk.cu",
 HEADERS = ("merge_path.cuh",)
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
+
+class KernelLimitError(RuntimeError):
+    """A shape that a kernel cannot run on the card (a band or a model wider
+    than it takes). A wrapper raises it instead of taking the plain loop."""
+
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 # seconds the last build took in this process (0.0 when the library was
@@ -141,13 +147,16 @@ def library() -> ctypes.CDLL:
             lib.mfx_sort_words2.restype = i32
             # the profile's ten arrays, then (scores) model lengths and count
             # or (scan) the model length; windows, lengths, B, T, Lp, window,
-            # output
-            lib.mfx_viterbi_scores.argtypes = [vp] * 10 + [vp, i32, vp, vp, i32, i32,
-                                                           i32, i32, vp, vp]
+            # the layout (columns a lane, warps a row, rows a block, cluster
+            # size, ring depth), output
+            lib.mfx_viterbi_scores.argtypes = [vp] * 10 + [vp, i32, vp, vp] + [i32] * 9 \
+                + [vp, vp]
             lib.mfx_viterbi_scores.restype = i32
-            lib.mfx_viterbi_scan.argtypes = [vp] * 10 + [i32, vp, vp, i32, i32, i32,
-                                                         i32, vp, vp]
+            lib.mfx_viterbi_scan.argtypes = [vp] * 10 + [i32, vp, vp] + [i32] * 9 + [vp, vp]
             lib.mfx_viterbi_scan.restype = i32
+            # warps a row, rows a block, depth, window, scan pass
+            lib.mfx_viterbi_smem_bytes.argtypes = [i32] * 5
+            lib.mfx_viterbi_smem_bytes.restype = ctypes.c_longlong
             # queries, q_lens, targets, t_lens, matrix, K, B, Lq, Lt, gap open
             # and extend, scratch, output, stream
             lib.mfx_sw_align.argtypes = [vp] * 5 + [i32] * 4 + [ctypes.c_float] * 2 \

@@ -67,6 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..kernels import KernelLimitError
 from ..device import resolve_device
 from ..models import cm as cm_models
 from ..models.cm import B, D, E, IL, IR, ML, MP, MR, S
@@ -464,11 +465,10 @@ class KernelInputs(NamedTuple):
     o_j: np.ndarray
 
 
-class KernelLimitError(RuntimeError):
-    """A band wider than the kernel takes. Not a ValueError: the rRNA
-    search keeps the p7 hit on the band check's ValueError (a degenerate
-    anchor), and a width the card cannot run must fail, not change the
-    hit."""
+# A band wider than the kernel takes raises KernelLimitError. Not a
+# ValueError: the rRNA search keeps the p7 hit on the band check's ValueError
+# (a degenerate anchor), and a width the card cannot run must fail, not
+# change the hit.
 
 
 def check_kernel_width(slack: int) -> int:

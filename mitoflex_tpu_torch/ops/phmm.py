@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..kernels import KernelLimitError
 from ..device import resolve_device
 from ..models.hmm import ProfileHMM
 
@@ -279,6 +280,154 @@ def closure_window(delete_band, scores: bool) -> int:
     return shift
 
 
+# The kernel's layout (csrc/viterbi.cu): a stage is a warp of 32 lanes, K
+# columns a lane; a row's stages are the P warps of a block times the C
+# blocks of a cluster; a block holds R rows.
+LANES = 32
+KERNEL_COLS = (1, 2, 4, 8)       # the instantiations of K
+KERNEL_MAX_LP = 8192             # the widest padded model the kernel takes
+KERNEL_MAX_CLUSTER = 8           # the portable cluster size
+KERNEL_MAX_SMEM = 232448         # 227 KB of shared memory a block
+KERNEL_DEPTH = 4                 # slots of a hand-off ring (2 at least)
+KERNEL_MAX_T = 65535             # steps a row: a payload packs a step in 16 bits
+# a call of at most SMs / SPREAD_ROWS rows spreads each row over a cluster
+# of SPREAD_COLS-column lanes, where a row's step time is the call's time;
+# more rows run at ROW_COLS columns a lane, the fewest stages (at 8 columns
+# a lane the scan pass spills registers and both passes ran slower on an
+# H100, PERF.md)
+SPREAD_ROWS = 4
+SPREAD_COLS = 1
+ROW_COLS = 4
+
+
+class ViterbiConfig(NamedTuple):
+    """A launch layout of the Viterbi kernel."""
+
+    cols: int     # K: columns a lane
+    warps: int    # P: stages of a row in a block
+    rows: int     # R: rows a block
+    cluster: int  # C: blocks a row spans
+    depth: int    # slots of each hand-off ring
+
+    @property
+    def stage_width(self) -> int:
+        return LANES * self.cols
+
+    @property
+    def threads(self) -> int:
+        return LANES * self.warps * self.rows
+
+
+def kernel_max_threads(cols: int) -> int:
+    """Threads a block may have at ``cols`` columns a lane (the launch bound
+    of each instantiation)."""
+    return 512 if cols == 1 else 256
+
+
+def kernel_smem_bytes(cfg: ViterbiConfig, window: int, scan: bool) -> int:
+    """Shared memory a block takes: per warp a ring of ``depth`` slots of
+    64-bit words (scan: M, I, D, their three packed payloads, the exact
+    closure's carry and its payload, W suffix values and W payloads; scores:
+    M, I, D and W suffix values) and 32 bytes of ack and final pick
+    (``smem_bytes`` of the source)."""
+    slot = 8 + 2 * window if scan else 3 + window
+    return cfg.warps * cfg.rows * (cfg.depth * slot * 8 + 32)
+
+
+def check_config(cfg: ViterbiConfig, Lp: int, window: int, scan: bool) -> None:
+    """Raise ValueError unless the kernel can run ``cfg`` at this width and
+    window (the checks of the source's ``launch``)."""
+    problems = []
+    if cfg.cols not in KERNEL_COLS:
+        problems.append(f"{cfg.cols} columns a lane")
+    elif cfg.threads > kernel_max_threads(cfg.cols):
+        problems.append(f"{cfg.threads} threads a block")
+    if min(cfg.warps, cfg.rows, cfg.cluster) < 1 or cfg.cluster > KERNEL_MAX_CLUSTER:
+        problems.append(f"warps {cfg.warps}, rows {cfg.rows}, cluster {cfg.cluster}")
+    if cfg.depth < 2:
+        problems.append(f"ring depth {cfg.depth}")
+    if cfg.stage_width * cfg.warps * cfg.cluster < Lp:
+        problems.append(f"{cfg.stage_width * cfg.warps * cfg.cluster} columns for Lp {Lp}")
+    if window > cfg.stage_width or window < (0 if scan else 1):
+        problems.append(f"window {window} for a stage of {cfg.stage_width} columns")
+    if kernel_smem_bytes(cfg, window, scan) > KERNEL_MAX_SMEM:
+        problems.append(f"{kernel_smem_bytes(cfg, window, scan)} bytes of shared memory")
+    if problems:
+        raise ValueError(f"Viterbi kernel layout {tuple(cfg)}: " + ", ".join(problems))
+
+
+def viterbi_config(Lp: int, rows: int, window: int, scan: bool,
+                   sm_count: int = 132) -> ViterbiConfig:
+    """The kernel's layout for ``rows`` rows of padded width ``Lp`` at closure
+    window ``window`` (``closure_window``; 0: exact) on a card of
+    ``sm_count`` SMs. A stage is at least the window wide (so a band reaches
+    only into the stage on its left). Few rows (at most ``sm_count /
+    SPREAD_ROWS``) spread each row over a cluster of up to 8 blocks at
+    SPREAD_COLS columns a lane; more rows take ROW_COLS columns a lane, the
+    fewest stages, and several rows a block where a row is one warp.
+    KernelLimitError for a width over KERNEL_MAX_LP or a window wider than a
+    stage can be."""
+    if rows < 1 or Lp < 1:
+        raise ValueError(f"viterbi_config: {rows} rows of width {Lp}")
+    if window < (0 if scan else 1) or window & (window - 1):
+        raise ValueError(f"viterbi_config: closure window {window}")
+    if Lp > KERNEL_MAX_LP:
+        raise KernelLimitError(f"Viterbi kernel: padded model length {Lp} over the "
+                               f"kernel's limit of {KERNEL_MAX_LP}; the CPU path takes any")
+    if window > LANES * KERNEL_COLS[-1]:
+        raise KernelLimitError(f"Viterbi kernel: closure window {window} over the kernel's "
+                               f"limit of {LANES * KERNEL_COLS[-1]} (delete band at most "
+                               f"{LANES * KERNEL_COLS[-1]}); the CPU path takes any")
+    kmin = max(1, window // LANES)
+    spread = rows * SPREAD_ROWS <= sm_count
+    one_stage = 1 << max(0, (-(-Lp // LANES) - 1).bit_length())  # K of a one-stage row
+    K = max(kmin, SPREAD_COLS if spread else min(ROW_COLS, one_stage))
+    while True:
+        stages = -(-Lp // (LANES * K))
+        C = min(KERNEL_MAX_CLUSTER, stages) if spread else 1
+        P = -(-stages // C)
+        while LANES * P > kernel_max_threads(K) and C < KERNEL_MAX_CLUSTER:
+            C *= 2
+            P = -(-stages // C)
+        if LANES * P <= kernel_max_threads(K):
+            break
+        K *= 2
+    # rows a block: half the instantiation's threads, so that two blocks
+    # share an SM (the largest pick, K 8 at window 256, takes 133 KB of
+    # shared memory; check_config holds every pick to the card's limits)
+    R = 1 if spread else max(1, kernel_max_threads(K) // (LANES * P * 2))
+    cfg = ViterbiConfig(K, P, R, C, KERNEL_DEPTH)
+    check_config(cfg, Lp, window, scan)
+    return cfg
+
+
+def viterbi_configs(Lp: int, window: int, scan: bool, sm_count: int = 132) -> list:
+    """Every layout ``viterbi_config`` can pick at this width and window, for
+    any number of rows."""
+    counts = set(range(1, 257)) | {1 << i for i in range(8, 21)} \
+        | {max(1, sm_count // SPREAD_ROWS + d) for d in (-1, 0, 1)}
+    return sorted({viterbi_config(Lp, r, window, scan, sm_count) for r in counts})
+
+
+_SM_COUNTS: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev.index not in _SM_COUNTS:
+        _SM_COUNTS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SM_COUNTS[dev.index]
+
+
+def _layout(dev, Lp: int, rows: int, window: int, scan: bool, config) -> ViterbiConfig:
+    """The layout of one launch: ``config`` where the caller forces one
+    (checked), else ``viterbi_config`` for this card."""
+    if config is None:
+        return viterbi_config(Lp, rows, window, scan, _sm_count(dev))
+    cfg = ViterbiConfig(*config)
+    check_config(cfg, Lp, window, scan)
+    return cfg
+
+
 def _check_inputs(what: str, prof: DeviceProfile, lead: tuple, seqs: torch.Tensor,
                   lengths: torch.Tensor) -> None:
     """Raise ValueError unless the kernel takes these tensors: float32
@@ -305,6 +454,12 @@ def _check_inputs(what: str, prof: DeviceProfile, lead: tuple, seqs: torch.Tenso
                          f"{list(lengths.shape)} on {lengths.device}")
 
 
+def _check_steps(what: str, T: int) -> None:
+    if T > KERNEL_MAX_T:
+        raise KernelLimitError(f"{what}: windows of {T} positions over the kernel's limit "
+                               f"of {KERNEL_MAX_T}; the CPU path takes any")
+
+
 def _profile_ptrs(prof: DeviceProfile) -> list:
     return [getattr(prof, f).data_ptr() for f in DeviceProfile._fields[:-1]]
 
@@ -315,12 +470,15 @@ def viterbi_scan(
     lengths: torch.Tensor,   # [B] int32
     model_len: int,
     delete_band: int = 16,
+    *,
+    _config=None,
 ) -> HmmHits:
     """Best local score per window with its envelope (sequence and model
     from/to), carried through the forward pass. ``delete_band`` bounds the
     delete-chain closure (0: exact). Tensors on a card: one launch of the
     kernel of ``csrc/viterbi.cu`` for the whole batch (bit-equal to the plain
-    version); on the CPU: :func:`viterbi_scan_plain`."""
+    version; layout from ``viterbi_config``, ``_config`` forces one for the
+    kernel's checks); on the CPU: :func:`viterbi_scan_plain`."""
     dev = seqs.device
     if dev.type == "cpu":
         return viterbi_scan_plain(prof, seqs, lengths, model_len, delete_band)
@@ -329,13 +487,15 @@ def viterbi_scan(
     _check_inputs("viterbi_scan", prof, (), seqs, lengths)
     B, T = seqs.shape
     Lp = prof.msc.shape[0]
+    _check_steps("viterbi_scan", T)
     out = torch.empty((5, B), dtype=torch.int32, device=dev)
     if B:
+        W = closure_window(delete_band, scores=False)
+        cfg = _layout(dev, Lp, B, W, True, _config)
         ml = max(min(int(model_len), Lp), 0)
         err = kernels.launch(
             dev, kernels.library().mfx_viterbi_scan, *_profile_ptrs(prof), ml,
-            seqs.data_ptr(), lengths.data_ptr(), B, T, Lp,
-            closure_window(delete_band, scores=False), out.data_ptr())
+            seqs.data_ptr(), lengths.data_ptr(), B, T, Lp, W, *cfg, out.data_ptr())
         if err:
             kernels.check(err, "viterbi_scan")
         viterbi_scan.launches += 1
@@ -348,11 +508,14 @@ def viterbi_scores_multi(
     seqs: torch.Tensor,        # [B, T] int8 shared windows
     lengths: torch.Tensor,     # [B] int32
     delete_band: int = 16,
+    *,
+    _config=None,
 ) -> torch.Tensor:
     """[M, B] best scores (no envelopes): every model scans every window.
     Tensors on a card: one launch of the kernel of ``csrc/viterbi.cu`` for
-    all models and windows (bit-equal to the plain version); on the CPU:
-    :func:`viterbi_scores_multi_plain`."""
+    all models and windows (bit-equal to the plain version; layout from
+    ``viterbi_config``, ``_config`` forces one for the kernel's checks); on
+    the CPU: :func:`viterbi_scores_multi_plain`."""
     dev = seqs.device
     if dev.type == "cpu":
         return viterbi_scores_multi_plain(profs, model_lens, seqs, lengths, delete_band)
@@ -362,6 +525,7 @@ def viterbi_scores_multi(
     _check_inputs("viterbi_scores_multi", profs, (Mn,), seqs, lengths)
     B, T = seqs.shape
     Lp = profs.msc.shape[1]
+    _check_steps("viterbi_scores_multi", T)
     lens = torch.as_tensor(model_lens).reshape(-1)
     if lens.numel() != Mn:
         raise ValueError(f"viterbi_scores_multi: {lens.numel()} model lengths for "
@@ -369,10 +533,12 @@ def viterbi_scores_multi(
     lens = lens.clamp(0, Lp).to(device=dev, dtype=torch.int32)
     out = torch.empty((Mn, B), dtype=torch.float32, device=dev)
     if Mn and B:
+        W = closure_window(delete_band, scores=True)
+        cfg = _layout(dev, Lp, Mn * B, W, False, _config)
         err = kernels.launch(
             dev, kernels.library().mfx_viterbi_scores, *_profile_ptrs(profs),
-            lens.data_ptr(), Mn, seqs.data_ptr(), lengths.data_ptr(), B, T, Lp,
-            closure_window(delete_band, scores=True), out.data_ptr())
+            lens.data_ptr(), Mn, seqs.data_ptr(), lengths.data_ptr(), B, T, Lp, W, *cfg,
+            out.data_ptr())
         if err:
             kernels.check(err, "viterbi_scores_multi")
         viterbi_scores_multi.launches += 1

@@ -314,14 +314,49 @@ def _viterbi_windows(rng: np.random.Generator, cons: list, B: int, T: int
     return seqs, lens
 
 
+def _flat_viterbi_case(rng: np.random.Generator, Lp: int, lens, B: int, T: int):
+    """Stacked arrays of models whose columns inside the model are all alike
+    (0.5-bit scores, free deletes: cdd flat at 0), and windows of one code,
+    of two codes in turn and at random: M, the closure's inputs and the
+    per-column bests tie across every stage and cluster-block boundary, for
+    the banded closure's rightmost and the exact closure's leftmost rule and
+    for the final pick's first column."""
+    from ..ops import phmm
+
+    arrays = {f: [] for f in phmm.DeviceProfile._fields[:-1]}
+    col = {"tmm": -0.5, "tim": -1.0, "tdm": -1.0, "tmi": -2.0, "tii": -1.0, "tmd": -1.5,
+           "cdd": 0.0}
+    for L in lens:
+        real = np.arange(Lp) < L
+        msc = np.where(real[:, None], np.float32([1.5, -1.0, -1.0, 0.5]), np.float32(phmm.NEG))
+        arrays["msc"].append(msc.astype(np.float32))
+        arrays["isc"].append(np.where(real[:, None], np.full(4, -0.5, np.float32),
+                                      np.float32(phmm.NEG)).astype(np.float32))
+        for f, v in col.items():
+            arrays[f].append(np.where(real, np.float32(v), np.float32(phmm.NEG))
+                             .astype(np.float32))
+        arrays["entry"].append(np.float32(np.round(np.log2(2.0 / (L * (L + 1))) * 2) / 2))
+    stacked = {f: np.ascontiguousarray(np.stack(v).astype(np.float32))
+               for f, v in arrays.items()}
+    seqs = rng.integers(0, 4, (B, T)).astype(np.int8)
+    seqs[0] = 0
+    if B > 1:
+        seqs[1] = np.arange(T) % 2 * 3
+    lens_w = np.full(B, T, np.int32)
+    return stacked, np.asarray(lens, np.int32), seqs, lens_w
+
+
 def viterbi_cases(seed: int = 2027) -> Iterator[ViterbiCase]:
     """(name, stacked profile arrays, model lengths, windows, lengths) for
-    both Viterbi passes: padded lengths 128 (one column a thread), 1024
-    (two) and 2048 (four), models shorter than and as long as the padded
-    length, profiles quantised to 0.5 bits, cheap deletes, one window, rows
-    of length 0 and of N, lengths past T and negative, odd codes; long rows
-    at the small width, short ones at the large widths. Each case runs at
-    every band of ``VITERBI_BANDS``."""
+    both Viterbi passes: padded lengths 64 to 8192, models shorter than and
+    as long as the padded length, model lengths one column before, on and
+    after the boundaries of 64- to 1024-column stages and cluster blocks
+    (the kernel's layouts), profiles quantised to 0.5 bits, cheap deletes
+    (so bands cross stage boundaries), a flat profile whose values tie
+    across every boundary, one window, rows of length 0 and of N, lengths
+    past T and negative, odd codes; long rows at the small widths, short
+    ones at the large widths. Every case has fewer rows than a card has
+    SMs. Each case runs at every band of ``VITERBI_BANDS``."""
     rng = np.random.default_rng(seed)
     specs = (  # name, model lengths, pad_to, quantised, cheap deletes, B, T
         ("Lp 128, L 70/128, real scores", (70, 128), 0, False, False, 8, 128),
@@ -331,11 +366,22 @@ def viterbi_cases(seed: int = 2027) -> Iterator[ViterbiCase]:
         ("Lp 64 = L (pad_to 32), cheap deletes", (64, 50), 32, False, True, 8, 128),
         ("Lp 1024, L 950, 0.5-bit scores", (950, 1024), 0, True, True, 3, 24),
         ("Lp 2048, L 1100/2048, 0.5-bit scores", (1100, 2048), 0, True, True, 6, 20),
+        ("Lp 256, L 63/64/65/127/128/129 (stage edges)", (63, 64, 65, 127, 128, 129, 256),
+         256, True, True, 3, 40),
+        ("Lp 1024, L 255/256/257/511/512/513 (stage and block edges)",
+         (255, 256, 257, 511, 512, 513), 1024, True, True, 2, 24),
+        ("Lp 2048, L 1023/1024/1025 (block edges)", (1023, 1024, 1025), 0, True, True, 2, 16),
+        ("Lp 4096, L 4096/3000", (4096, 3000), 0, True, True, 2, 12),
+        ("Lp 8192, L 8192/5000", (8192, 5000), 0, True, True, 2, 10),
     )
     for name, lens, pad_to, quant, cheap, B, T in specs:
         arrays, mlens, cons = _viterbi_profiles(rng, lens, pad_to, quant, cheap)
         seqs, wl = _viterbi_windows(rng, cons, B, T)
         yield name, arrays, mlens, seqs, wl
+    for Lp, lens, B, T in ((256, (256, 130, 64), 3, 48), (2048, (2048, 1024), 2, 24)):
+        arrays, mlens, seqs, wl = _flat_viterbi_case(rng, Lp, lens, B, T)
+        yield (f"Lp {Lp}, flat profile L {'/'.join(map(str, lens))}: ties across every "
+               f"boundary"), arrays, mlens, seqs, wl
 
 
 def _profile(arrays: dict, m, device):
@@ -350,13 +396,29 @@ def _profile(arrays: dict, m, device):
                                 .to(device) for f in phmm.DeviceProfile._fields[:-1]), 0)
 
 
-def check_viterbi(device) -> int:
+def viterbi_layouts(device, Lp: int, band: int, scan: bool) -> list:
+    """The kernel layouts the check forces at this width and band: every one
+    ``ops.phmm.viterbi_config`` can pick on this card (none on the CPU,
+    where the wrappers take the plain versions)."""
+    import torch
+
+    from ..ops import phmm
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [None]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return phmm.viterbi_configs(Lp, phmm.closure_window(band, scores=not scan), scan, sms)
+
+
+def check_viterbi(device) -> Tuple[int, int]:
     """Every case of :func:`viterbi_cases` at every band through both
-    passes of ``ops.phmm`` on ``device`` (a card: the kernel), held against
-    the plain versions on the same tensors: scores bit for bit (float32
-    bits), every coordinate exact. The scan runs each model of the case
-    alone. Raises AssertionError on the first difference; returns the
-    number of (case, band) pairs."""
+    passes of ``ops.phmm`` on ``device`` (a card: the kernel, at every
+    layout of :func:`viterbi_layouts`), held against the plain versions on
+    the same tensors: scores bit for bit (float32 bits), every coordinate
+    exact. The scan runs each model of the case alone. Raises
+    AssertionError on the first difference; returns the number of (case,
+    band) pairs and of kernel calls compared."""
     import torch
 
     from ..ops import phmm
@@ -364,27 +426,33 @@ def check_viterbi(device) -> int:
     def bits(x):
         return x.contiguous().view(torch.int32)
 
-    n_cases = 0
+    n_cases = n_calls = 0
     for name, arrays, mlens, seqs, wl in viterbi_cases():
         s, l = torch.from_numpy(seqs).to(device), torch.from_numpy(wl).to(device)
         stack = _profile(arrays, None, device)
+        Lp = stack.msc.shape[1]
         for band in VITERBI_BANDS:
-            got = phmm.viterbi_scores_multi(stack, mlens.tolist(), s, l, band)
             want = phmm.viterbi_scores_multi_plain(stack, mlens.tolist(), s, l, band)
-            if not torch.equal(bits(got), bits(want)):
-                raise AssertionError(f"viterbi_scores_multi differs from its plain "
-                                     f"version: {name}, band {band}")
+            for cfg in viterbi_layouts(device, Lp, band, scan=False):
+                got = phmm.viterbi_scores_multi(stack, mlens.tolist(), s, l, band,
+                                                _config=cfg)
+                n_calls += 1
+                if not torch.equal(bits(got), bits(want)):
+                    raise AssertionError(f"viterbi_scores_multi differs from its plain "
+                                         f"version: {name}, band {band}, layout {cfg}")
             for m, L in enumerate(mlens.tolist()):
                 prof = _profile(arrays, m, device)
-                got = phmm.viterbi_scan(prof, s, l, L, band)
                 want = phmm.viterbi_scan_plain(prof, s, l, L, band)
-                for field, g, w in zip(phmm.HmmHits._fields, got, want):
-                    if not torch.equal(bits(g), bits(w)):
-                        raise AssertionError(
-                            f"viterbi_scan {field} differs from its plain version: "
-                            f"{name}, model {m}, band {band}")
+                for cfg in viterbi_layouts(device, Lp, band, scan=True):
+                    got = phmm.viterbi_scan(prof, s, l, L, band, _config=cfg)
+                    n_calls += 1
+                    for field, g, w in zip(phmm.HmmHits._fields, got, want):
+                        if not torch.equal(bits(g), bits(w)):
+                            raise AssertionError(
+                                f"viterbi_scan {field} differs from its plain version: "
+                                f"{name}, model {m}, band {band}, layout {cfg}")
             n_cases += 1
-    return n_cases
+    return n_cases, n_calls
 
 
 # ------------------------------------------------ Smith-Waterman cases

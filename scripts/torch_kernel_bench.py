@@ -1,10 +1,10 @@
 """Check and time the port's kernels (K1 read filter, K2 and K3 merges, K4
-sort, C1 banded CYK) on one GPU.
+sort, C1 banded CYK, V1 and V2 Viterbi passes) on one GPU.
 
     python3 scripts/torch_kernel_bench.py [--repo DIR] [--check] [--time]
-                                          [--kernels K1,K2,K3,K4,C1]
-                                          [--shapes FILE] [--label NAME]
-                                          [--out FILE]
+                                          [--kernels K1,K2,K3,K4,C1,V1,V2]
+                                          [--shapes FILE] [--viterbi-calls FILE]
+                                          [--label NAME] [--out FILE]
 
 ``--repo DIR`` imports ``mitoflex_tpu_torch`` from another checkout (for
 example the parent commit unpacked by ``git archive``), so that two versions
@@ -36,8 +36,20 @@ nt), slack 48 (W 98), local mode; each call's median, min and max over
 CYK_REPEATS calls, its bound (every W x W block written once, with the
 inputs and outputs, at 3.35 TB/s) and, where the checkout has it, the
 schedule's depth; with ``--check``, every case of
-``kernel_cases.cyk_cases`` against the plain version on the CPU first. The
-card's name and power limit are printed first.
+``kernel_cases.cyk_cases`` against the plain version on the CPU first. V1
+(``viterbi_scores_multi``) and V2 (``viterbi_scan``), when ``--kernels``
+names them, are timed through their public wrappers on seeded profiles
+(``profile_from_consensus`` of random consensus sequences) and windows with
+planted copies: the golden run's largest call of each pass (from
+``--viterbi-calls``, the ``viterbi_golden_calls.json`` that ``chip_smoke.py``
+phase 13 writes; without it, Lp 2048 models of length 1100 on 28 and 3
+windows of 2200), the shapes of ``chip_smoke.py``'s VITERBI_SHAPES, and,
+given the file, every golden call replayed and summed per pass (each call's
+median of VITERBI_GOLDEN_REPEATS). Each row: median ms of VITERBI_REPEATS
+calls, ns a step (ms over the longest row's steps), the operations bound at
+67 TFLOP/s and, where the checkout has ``viterbi_config``, the layout; with
+``--check``, ``kernel_cases.check_viterbi`` on the card first. The card's
+name and power limit are printed first.
 """
 
 from __future__ import annotations
@@ -262,6 +274,118 @@ def time_cyk(dev, label: str, out_path=None) -> None:
              / HBM_BYTES_PER_MS, depth=getattr(x, "depth", None), bit_equal_to_cpu=bit)
 
 
+VITERBI_REPEATS = 7
+VITERBI_GOLDEN_REPEATS = 3
+VITERBI_SEED = 2031
+F32_OPS_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores, 67 TFLOP/s
+# operations a cell, as chip_smoke.py's VITERBI_OPS: (base, a closure round)
+VITERBI_OPS = {"V1": (15, 1), "V2": (30, 4)}
+# chip_smoke.py's VITERBI_SHAPES: (pass, models, model length, windows, width)
+VITERBI_SHAPES = (("V1", 22, 72, 512, 4096), ("V1", 1, 950, 512, 4096),
+                  ("V1", 1, 1100, 512, 4096), ("V2", 1, 1100, 64, 4096))
+PASS_NAMES = {"viterbi_scores_multi": "V1", "viterbi_scan": "V2"}
+
+
+def viterbi_call(dev, rng, kernel, model_lens, Lp, B, T, lengths, band=16):
+    """A seeded call of pass ``kernel`` (V1 or V2): a function running it
+    through the public wrapper, and its (rows' longest steps, cells)."""
+    from mitoflex_tpu_torch.io import encoding
+    from mitoflex_tpu_torch.models.hmm import profile_from_consensus
+    from mitoflex_tpu_torch.ops import phmm
+    from mitoflex_tpu_torch.testing import synth
+
+    cons = [synth.random_genome(rng, max(int(L), 1)) for L in model_lens]
+    profs = [phmm.stage_profile(profile_from_consensus(f"B{i}", c), pad_to=Lp, device=dev)
+             for i, c in enumerate(cons)]
+    seqs = rng.integers(0, 4, (B, T)).astype(np.int8)
+    for b in range(0, B, 3):  # a planted copy in every third window
+        c = encoding.encode(cons[b % len(cons)])[:T]
+        at = int(rng.integers(0, max(1, T - len(c))))
+        seqs[b, at: at + len(c)] = c[: T - at]
+    s = torch.from_numpy(seqs).to(dev)
+    lens = torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
+    steps = np.clip(np.asarray(lengths, np.int64), 0, T)
+    cells = int(steps.sum()) * sum(min(max(int(L), 0), Lp) for L in model_lens)
+    if kernel == "V2":
+        prof = profs[0]
+        return (lambda: phmm.viterbi_scan(prof, s, lens, int(model_lens[0]), band)), \
+            max(int(steps.max()), 1), cells
+    stack = phmm.stack_profiles(profs)
+    ml = [int(L) for L in model_lens]
+    return (lambda: phmm.viterbi_scores_multi(stack, ml, s, lens, band)), \
+        max(int(steps.max()), 1), cells
+
+
+def _viterbi_layout(kernel, Lp, rows, band):
+    from mitoflex_tpu_torch.ops import phmm
+
+    if not hasattr(phmm, "viterbi_config"):
+        return None
+    scan = kernel == "V2"
+    return list(phmm.viterbi_config(Lp, rows, phmm.closure_window(band, scores=not scan),
+                                    scan, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count))
+
+
+def time_viterbi(dev, label: str, which, calls_path=None, out_path=None) -> None:
+    """V1 and V2 at the golden run's largest calls, at VITERBI_SHAPES and,
+    given the golden calls, every call replayed and summed per pass."""
+    from mitoflex_tpu_torch.ops import phmm
+
+    emit = _emitter(label, out_path)
+    rng = np.random.default_rng(VITERBI_SEED)
+    recorded = []
+    if calls_path:
+        with open(calls_path) as f:
+            recorded = [dict(c, kernel=PASS_NAMES[c["pass"]]) for c in json.load(f)]
+
+    def size(c):
+        return sum(min(L, c["Lp"]) for L in c["model_lens"]) * sum(
+            min(max(x, 0), c["T"]) for x in c["lengths"])
+
+    largest = {}
+    for c in recorded:
+        if c["kernel"] not in largest or size(c) > size(largest[c["kernel"]]):
+            largest[c["kernel"]] = c
+    for kernel, B in (("V1", 28), ("V2", 3)):
+        largest.setdefault(kernel, {"kernel": kernel, "model_lens": [1100], "Lp": 2048,
+                                    "B": B, "T": 2200, "band": 16, "lengths": [2200] * B})
+    shapes = [dict(largest[k], what="golden largest") for k in ("V1", "V2") if k in which]
+    shapes += [{"kernel": k, "model_lens": [L] * Mn, "Lp": None, "B": B, "T": T,
+                "band": 16, "lengths": [T] * B, "what": "shape"}
+               for k, Mn, L, B, T in VITERBI_SHAPES if k in which]
+
+    def bound(kernel, cells, band):
+        base, per_round = VITERBI_OPS[kernel]
+        W = phmm.closure_window(band, scores=kernel == "V1")
+        return cells * (base + per_round * (max(W, 1).bit_length() - 1)) / F32_OPS_PER_MS
+
+    for c in shapes:
+        Lp = c["Lp"] or max(128, 1 << (max(c["model_lens"]) - 1).bit_length())
+        fn, steps, cells = viterbi_call(dev, rng, c["kernel"], c["model_lens"], Lp, c["B"],
+                                        c["T"], c["lengths"], c["band"])
+        ms = cuda_ms(fn, VITERBI_REPEATS)
+        emit(kernel=c["kernel"], what=c["what"], models=len(c["model_lens"]),
+             model_len=max(c["model_lens"]), Lp=Lp, B=c["B"], T=c["T"], ms=ms,
+             ns_step=ms * 1e6 / steps, cells=cells, bound_ms=bound(c["kernel"], cells,
+                                                                    c["band"]),
+             layout=_viterbi_layout(c["kernel"], Lp, len(c["model_lens"]) * c["B"],
+                                    c["band"]))
+    for kernel in ("V1", "V2"):
+        calls = [c for c in recorded if c["kernel"] == kernel]
+        if kernel not in which or not calls:
+            continue
+        total = cells_all = bound_all = 0
+        for c in calls:
+            fn, _, cells = viterbi_call(dev, rng, kernel, c["model_lens"], c["Lp"], c["B"],
+                                        c["T"], c["lengths"], c["band"])
+            total += cuda_ms(fn, VITERBI_GOLDEN_REPEATS)
+            cells_all += cells
+            bound_all += bound(kernel, cells, c["band"])
+        emit(kernel=kernel, what="golden replay", calls=len(calls), ms=total,
+             cells=cells_all, bound_ms=bound_all)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
@@ -269,8 +393,11 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--kernels", default="K1,K2,K3,K4",
-                    help="comma-separated subset of K1,K2,K3,K4,C1 to check and time")
+                    help="comma-separated subset of K1,K2,K3,K4,C1,V1,V2 to check and time")
     ap.add_argument("--shapes", default=None)
+    ap.add_argument("--viterbi-calls", default=None,
+                    help="the golden run's Viterbi calls (chip_smoke.py phase 13's "
+                         "viterbi_golden_calls.json) to replay")
     ap.add_argument("--label", default="change")
     ap.add_argument("--out", default=None,
                     help="also append the timing rows to this JSON-lines file")
@@ -293,6 +420,11 @@ def main() -> int:
     if args.check and "C1" in which:
         print(f"check: C1 on every cyk_cases case, coordinates and argmax cells equal to "
               f"the CPU plain version, {check_cyk(dev)} bit-equal", flush=True)
+    if args.check and set(which) & {"V1", "V2"}:
+        from mitoflex_tpu_torch.testing import kernel_cases
+
+        print(f"check: V1 and V2 bit-equal to the plain versions on the card: "
+              f"{kernel_cases.check_viterbi(dev)} (case, band) pairs", flush=True)
     if args.check and set(which) & {"K1", "K2", "K3", "K4"}:
         from mitoflex_tpu_torch.testing import kernel_cases
 
@@ -314,6 +446,8 @@ def main() -> int:
         time_shapes(psort, dev, args.label, extra, args.out, which)
         if "C1" in which:
             time_cyk(dev, args.label, args.out)
+        if set(which) & {"V1", "V2"}:
+            time_viterbi(dev, args.label, which, args.viterbi_calls, args.out)
     return 0
 
 
