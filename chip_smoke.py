@@ -146,11 +146,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    after phase 13) against its plain loop on the same card tensors, all
    nine fields bit-equal: on every seeded case of ``kernel_cases.sw_cases``
    (BLOSUM62 and DNA gap costs, query lengths around the kernel's lanes and
-   strips, empty, all-N/X and odd-code rows, tied best cells, and a
-   16,500-column contig against 300-base windows) and at the golden run's
-   largest SW call, each timed beside its bound: the operations its cells
-   need at 67 TFLOP/s, or its bytes once at 3.35 TB/s where that is larger;
-   then every SW call of the golden run through the kernel again, timed.
+   strips, empty, all-N/X and odd-code rows, tied best cells, a query whose
+   best alignment starts past column 2^15, a 16,500-column contig against
+   300-base windows, and a 65,600-column query over the packed path fields'
+   limit) at every layout ``ops.sw.sw_config`` weighs for the case's
+   widths (columns a lane, warps a pair, cluster, wide fields, target
+   positions a lane a step; one layout an instantiation, the pick among
+   them), the wide instantiation and a wrapping layout (a private
+   ``_config`` keyword forces each), the chooser's shared-memory formula
+   against the library's; each case, a real-size tblastn call (64 pairs x
+   Lq 600 x Lt 5300, seeded, planted homologs) and the golden run's largest
+   SW call timed beside the plain loop and its bound (the operations its
+   cells need at 67 TFLOP/s, or its bytes once at 3.35 TB/s where that is
+   larger) with its layout and ns a step (ms over the longest chain's
+   stage steps); one wrapper call of the golden call must make exactly one
+   kernel launch; then every SW call of the golden run through the kernel
+   again, timed.
 15. The banded CYK kernel of mitoflex_tpu_torch/csrc/cyk.cu (run right
    after phase 14) on every seeded case of ``kernel_cases.cyk_cases`` (the
    tRNA-size model at slack 8, 12 and 48, CLEN 180 and 950, glocal and
@@ -172,12 +183,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    after phase 15) on every seeded case of ``kernel_cases.genewise_cases``
    (frameshifts of every step, stops, N codons, both penalty sets, a gene
    planted twice, lengths 0 to 2, odd codes, 1 to 3 strips, a 600-aa
-   protein in a 2000-base window) and on the golden run's calls: all six
-   fields bit-equal to the plain loop on the same card tensors and on the
-   CPU; the real-size case and each golden call timed (median and spread of
-   at least 5 calls) beside the plain loop on the card and the operations
-   bound; one wrapper call of each golden call must make exactly one
-   kernel launch.
+   protein in a 2000-base window, a query whose best alignment starts past
+   residue 2^15, a 65,600-residue query over the packing limit) at every
+   layout ``ops.genewise.genewise_config`` weighs, the wide instantiation
+   and a wrapping layout, and on the golden run's calls: all six fields
+   bit-equal to the plain loop on the same card tensors and on the CPU;
+   the real-size case and each golden call timed (median and spread of at
+   least 5 calls, layout, ns a step) beside the plain loop on the card and
+   the operations bound; one wrapper call of each golden call must make
+   exactly one kernel launch.
 
 Kernel times are medians of CUDA-event-timed repeats after a warm-up; one
 repeat is one call of the kernel's wrapper between two events, so it holds
@@ -1820,7 +1834,7 @@ def check_viterbi_kernels(dev, calls: dict, nhmmer_calls: list, seed: int,
         for W, scan in ((0, True), (2, False), (16, False), (16, True), (128, True)):
             for cfg in phmm.viterbi_configs(Lp, W, scan, sms):
                 want = phmm.kernel_smem_bytes(cfg, W, scan)
-                got = lib.mfx_viterbi_smem_bytes(cfg.warps, cfg.rows, cfg.depth, W, int(scan))
+                got = lib.mfx_viterbi_smem_bytes(cfg.warps, cfg.rows, W, int(scan))
                 if got != want:
                     raise AssertionError(f"shared memory of layout {tuple(cfg)} at window "
                                          f"{W}: the kernel's {got}, the chooser's {want}")
@@ -1892,21 +1906,42 @@ def _sw_bound(q, ql, t, tl, sub, *_) -> tuple:
     return max(op_ms, mem_ms), ("operations" if op_ms >= mem_ms else "bytes"), cells
 
 
+def _dp_layout(kind: str, q, t, kw) -> tuple:
+    """The layout a call of ``sw_align`` (kind "sw") or ``genewise_align``
+    ("genewise") runs at: the forced ``_config``, else the chooser's pick."""
+    from mitoflex_tpu_torch.ops import genewise, row_pipeline, sw
+
+    if kw.get("_config") is not None:
+        return row_pipeline.PipelineConfig(*kw["_config"])
+    choose = sw.sw_config if kind == "sw" else genewise.genewise_config
+    return choose(q.shape[1], t.shape[1])
+
+
+def _dp_steps(cfg, ql, tl) -> int:
+    """Stage steps on the call's longest chain (``PipelineConfig.steps``)."""
+    return max([1] + [cfg.steps(a, b) for a, b in zip(ql.tolist(), tl.tolist())])
+
+
 def _time_sw(args, kw, repeats: int = 5, plain: bool = True) -> dict:
     """The kernel (median of CUDA-event-timed wrapper calls) and, with
     ``plain``, the plain loop (one call) on the same card tensors, all nine
-    fields bit-equal, or AssertionError."""
+    fields bit-equal, or AssertionError; the layout and ns a step over the
+    call's longest chain."""
     from mitoflex_tpu_torch.ops import sw
 
-    q, t = args[0], args[2]
-    out = {"ms": _cuda_ms(lambda: sw.sw_align(*args, **kw), repeats), "max_abs_err": 0.0,
+    q, ql, t, tl = args[:4]
+    times = _cuda_times(lambda: sw.sw_align(*args, **kw), repeats)
+    cfg = _dp_layout("sw", q, t, kw)
+    out = {"ms": float(np.median(times)), "min_ms": min(times), "max_ms": max(times),
+           "max_abs_err": 0.0, "library_ms": None, "layout": tuple(cfg),
            "shape": f"{q.shape[0]} pairs x Lq {q.shape[1]} x Lt {t.shape[1]}"}
+    out["ns_step"] = out["ms"] * 1e6 / _dp_steps(cfg, ql.cpu(), tl.cpu())
     out["bound_ms"], out["bound_by"], out["cells"] = _sw_bound(*args)
     if plain:
         got = sw.sw_align(*args, **kw)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        want = sw.sw_align_plain(*args, **kw)
+        want = sw.sw_align_plain(*args, **{k: v for k, v in kw.items() if k != "_config"})
         end.record()
         end.synchronize()
         out["plain_ms"] = start.elapsed_time(end)
@@ -1921,40 +1956,97 @@ def _time_sw(args, kw, repeats: int = 5, plain: bool = True) -> dict:
 def _sw_line(r) -> str:
     plain = (f", plain {r['plain_ms']:.1f} ms ({r['plain_ms'] / r['ms']:.0f}x), bit-equal"
              if "plain_ms" in r else "")
-    return (f"{r['shape']} ({r['cells']} cells): kernel {r['ms']:.4f} ms{plain}, bound "
-            f"{r['bound_ms']:.5f} ms by {r['bound_by']} "
-            f"({100 * r['bound_ms'] / r['ms']:.2f}% of it)")
+    return (f"{r['shape']} ({r['cells']} cells), layout {r['layout']}: kernel median "
+            f"{r['ms']:.4f} ms (min {r['min_ms']:.4f}, max {r['max_ms']:.4f}), "
+            f"{r['ns_step']:.1f} ns a step{plain}, bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.2f}% of it)")
 
 
-def check_sw_kernel(dev, calls: list) -> dict:
+# the real-size tblastn shape: 64 pairs (a batch of blast's _batched_sw) of
+# 600-residue proteins (COX1 ~510, ND5 ~600) against 5,300-codon windows
+SW_REAL_SHAPE = (64, 600, 5300)
+
+
+def _real_tblastn(dev, seed: int) -> tuple:
+    """Seeded pairs of SW_REAL_SHAPE, BLOSUM62 at 12/1: random proteins, and
+    in every target but each fourth a mutated copy of its query."""
+    from mitoflex_tpu_torch.models import codon
+    from mitoflex_tpu_torch.testing import kernel_cases
+
+    B, Lq, Lt = SW_REAL_SHAPE
+    rng = np.random.default_rng(seed)
+    arrays = kernel_cases._sw_pairs(rng, [Lq] * B, [Lt] * B, codon.NUM_AA, codon.X_CODE)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (*arrays, codon.blosum62().astype(np.float32))) + (12.0, 1.0)
+
+
+def _check_dp_smem() -> int:
+    """The choosers' shared-memory formulas against the library's, at every
+    layout they weigh over a range of widths; returns the layouts held."""
+    from mitoflex_tpu_torch import kernels
+    from mitoflex_tpu_torch.models import codon
+    from mitoflex_tpu_torch.ops import genewise, sw
+
+    lib = kernels.library()
+    n = 0
+    for Lq in (1, 100, 257, 600, 16500, 65600):
+        for Lt in (0, 300, 5300):
+            for cfgs, K, fn, mine in (
+                    (sw.sw_configs(Lq, Lt), 5, lib.mfx_sw_smem_bytes, sw.sw_smem_bytes),
+                    (genewise.genewise_configs(Lq, Lt), codon.NUM_AA,
+                     lib.mfx_genewise_smem_bytes, genewise.genewise_smem_bytes)):
+                for cfg in cfgs:
+                    got = fn(K, cfg.warps, int(cfg.wide), cfg.rows)
+                    if got != mine(cfg, K):
+                        raise AssertionError(f"shared memory of layout {tuple(cfg)}: the "
+                                             f"kernel's {got}, the chooser's {mine(cfg, K)}")
+                    n += 1
+    return n
+
+
+def check_sw_kernel(dev, calls: list, seed: int) -> dict:
     """Phase 14: the Smith-Waterman kernel of csrc/sw.cu against its plain
-    loop on every case of ``kernel_cases.sw_cases`` (the blastn-size one
-    included) and at the golden run's largest call, each timed beside its
-    bound (the plain loop too at the blastn size and the golden call); the
+    loop on every case of ``kernel_cases.sw_cases`` (the blastn-size and
+    over-the-packing-limit ones included) at every layout the chooser
+    weighs, the wide instantiation and a wrapping layout; each case timed
+    beside its bound (the plain loop too at the card-size cases), the
+    real-size tblastn shape and the golden run's largest call beside the
+    plain loop (one wrapper call of it must make exactly one launch); the
     golden run's every call through the kernel once more, timed and summed;
     returns the numbers of the golden run's largest call with the sum."""
     from mitoflex_tpu_torch.ops import sw
     from mitoflex_tpu_torch.testing import kernel_cases
 
     t0 = time.perf_counter()
-    n = kernel_cases.check_sw(dev)
+    n, n_calls = kernel_cases.check_sw(dev)
     torch.cuda.synchronize()
     _log(f"SW kernel on {n} seeded cases (BLOSUM62 at 12/1, DNA at 7/2, 11/1 and 3/3, Lq 1 "
-         f"to 257 around the 4-column lanes and 128-column strips, empty, all-N/X and "
-         f"odd-code rows, tied best cells, the blastn size): all nine fields bit-equal "
-         f"to the plain loop ({time.perf_counter() - t0:.2f} s)")
+         f"to 257 around the lanes and strips, empty, all-N/X and odd-code rows, tied best "
+         f"cells, Lq {kernel_cases.SW_LONG_LQ} past 2^15, the blastn size, Lq "
+         f"{kernel_cases.SW_WIDE_LQ} over the packing limit), {n_calls} kernel calls at "
+         f"every layout the chooser weighs, the wide instantiation and a wrapping "
+         f"layout: all nine fields bit-equal to the plain loop "
+         f"({time.perf_counter() - t0:.2f} s); {_check_dp_smem()} layouts' shared "
+         f"memory equal to the library's")
     for case in kernel_cases.sw_cases():
         args, go, ge = kernel_cases.sw_tensors(case, dev)
         big = case[1].shape[1] >= kernel_cases.SW_BLASTN_LQ
         r = _time_sw(args + (go, ge), {}, repeats=3, plain=big)
         _log(f"SW case {case[0]!r}: {_sw_line(r)}")
+    r = _time_sw(_real_tblastn(dev, seed + 14), {})
+    _log(f"SW real-size tblastn: {_sw_line(r)}")
     if not calls:
         raise AssertionError("the golden run made no sw_align call")
     sized = [(_sw_bound(*c[:-1])[2], i) for i, c in enumerate(calls)]
     largest = calls[max(sized)[1]]
     r = _time_sw(largest[:-1], largest[-1])
+    ms, launches = _wall_ms_and_launches(lambda: sw.sw_align(*largest[:-1], **largest[-1]))
+    if launches != 1:
+        raise AssertionError(f"golden sw_align call: {launches} kernel launches in one "
+                             f"wrapper call, not 1")
     _log(f"golden run's largest sw_align call: {_sw_line(r)}; {len(calls)} calls in the "
-         f"run, {sum(c for c, _ in sized)} cells in all")
+         f"run, {sum(c for c, _ in sized)} cells in all; one wrapper call {ms:.3f} ms on "
+         f"the host clock (ending in a synchronise), {launches} kernel launch")
     r.update(_golden_replay("sw_align", calls, lambda c: sw.sw_align(*c[:-1], **c[-1])))
     return r
 
@@ -2159,7 +2251,8 @@ def _time_genewise(args, kw) -> dict:
     """The kernel (median and spread of GENEWISE_REPEATS CUDA-event-timed
     wrapper calls after a warm-up) and the plain loop (one call) on the same
     card tensors; all six fields bit-equal to the plain loop on the card and
-    on the CPU, or AssertionError."""
+    on the CPU, or AssertionError; the layout and ns a step over the call's
+    longest chain."""
     from mitoflex_tpu_torch.ops import genewise
 
     times = _cuda_times(lambda: genewise.genewise_align(*args, **kw), GENEWISE_REPEATS)
@@ -2171,7 +2264,7 @@ def _time_genewise(args, kw) -> dict:
     end.synchronize()
     cpu = genewise.genewise_align_plain(
         *(x.cpu() if isinstance(x, torch.Tensor) else x for x in args), **kw)
-    q, aa = args[0], args[2]
+    q, ql, aa, tl = args[:4]
     shape = f"{q.shape[0]} hits x Lq {q.shape[1]} x T {aa.shape[1]}"
     for where, want in (("the card", card), ("the CPU", cpu)):
         for field, g, w in zip(genewise.WiseHits._fields, got, want):
@@ -2179,17 +2272,20 @@ def _time_genewise(args, kw) -> dict:
                                w.contiguous().view(torch.int32).cpu()):
                 raise AssertionError(f"genewise_align {field} differs from the plain loop "
                                      f"on {where} at {shape}")
+    cfg = _dp_layout("genewise", q, aa, kw)
     out = {"ms": float(np.median(times)), "min_ms": min(times), "max_ms": max(times),
            "plain_ms": start.elapsed_time(end), "max_abs_err": 0.0, "library_ms": None,
-           "shape": shape}
+           "shape": shape, "layout": tuple(cfg)}
+    out["ns_step"] = out["ms"] * 1e6 / _dp_steps(cfg, ql.cpu(), tl.cpu())
     out["bound_ms"], out["bound_by"], out["cells"] = _genewise_bound(*args[:5])
     return out
 
 
 def _genewise_line(r) -> str:
-    return (f"{r['shape']} ({r['cells']} cells): kernel median {r['ms']:.4f} ms (min "
-            f"{r['min_ms']:.4f}, max {r['max_ms']:.4f}, {GENEWISE_REPEATS} calls), plain loop "
-            f"on the card {r['plain_ms']:.1f} ms ({r['plain_ms'] / r['ms']:.0f}x), bound "
+    return (f"{r['shape']} ({r['cells']} cells), layout {r['layout']}: kernel median "
+            f"{r['ms']:.4f} ms (min {r['min_ms']:.4f}, max {r['max_ms']:.4f}, "
+            f"{GENEWISE_REPEATS} calls), {r['ns_step']:.1f} ns a step, plain loop on the card "
+            f"{r['plain_ms']:.1f} ms ({r['plain_ms'] / r['ms']:.0f}x), bound "
             f"{r['bound_ms']:.5f} ms by {r['bound_by']} "
             f"({100 * r['bound_ms'] / r['ms']:.2f}% of it); all six fields bit-equal to "
             f"the plain loop on the card and on the CPU")
@@ -2207,13 +2303,15 @@ def check_genewise_kernel(dev, calls: list) -> dict:
     from mitoflex_tpu_torch.testing import kernel_cases
 
     t0 = time.perf_counter()
-    n = kernel_cases.check_genewise(dev)
+    n, n_calls = kernel_cases.check_genewise(dev)
     torch.cuda.synchronize()
     _log(f"genewise kernel on {n} seeded cases (frameshifts of every step, stops, N codons "
          f"at 13/3/15/20 and 10/2/8/12, a gene planted twice, lengths 0 to 2, odd codes, "
-         f"Lq 1 to 257 around the 4-column lanes and 128-column strips, 600 aa x 2000 "
-         f"bases): all six fields bit-equal to the plain loop on the card and on the CPU "
-         f"({time.perf_counter() - t0:.2f} s)")
+         f"Lq 1 to 257 around the lanes and strips, 600 aa x 2000 bases, Lq "
+         f"{kernel_cases.GENEWISE_LONG_LQ} past 2^15, Lq {kernel_cases.GENEWISE_WIDE_LQ} "
+         f"over the packing limit), {n_calls} kernel calls at every layout the chooser "
+         f"weighs, the wide instantiation and a wrapping layout: all six fields bit-equal "
+         f"to the plain loop on the card and on the CPU ({time.perf_counter() - t0:.2f} s)")
     for case in kernel_cases.genewise_cases():
         if "real size" in case.name:
             r = _time_genewise(kernel_cases.genewise_tensors(case, dev) + case.penalties, {})
@@ -2565,7 +2663,7 @@ def main() -> int:
         viterbi = phase("13 Viterbi", check_viterbi_kernels, dev,
                         golden.pop("viterbi_calls"), golden.pop("nhmmer_calls"),
                         args.seed, tmp)
-        sw_golden = phase("14 SW", check_sw_kernel, dev, golden.pop("sw_calls"))
+        sw_golden = phase("14 SW", check_sw_kernel, dev, golden.pop("sw_calls"), args.seed)
         cyk_golden = phase("15 CYK", check_cyk_kernel, dev, golden.pop("cyk_calls"))
         gw_golden = phase("16 genewise", check_genewise_kernel, dev,
                           golden.pop("genewise_calls"))

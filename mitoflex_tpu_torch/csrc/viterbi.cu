@@ -55,15 +55,15 @@
 //   on ties) plus, for the right neighbour, log2(W) rounds of a suffix scan
 //   (shfl_down); the exact closure as a lane-serial prefix and a 5-round
 //   warp scan (leftmost on ties). Payloads ride along with their values.
-// - Hand-offs go through a ring of `depth` slots in the consumer's shared
+// - Hand-offs go through a ring of kDepth slots in the consumer's shared
 //   memory (a neighbouring warp's, or the next cluster block's through
-//   distributed shared memory, addressed by mapa). Each posted word is 64
+//   distributed shared memory, addressed by mapa; csrc/handoff.cuh). Each posted word is 64
 //   bits, its step in the high half, so it validates itself (a relaxed
 //   64-bit store is single-copy atomic): the consumer issues all its loads
 //   at once (lane 0 the head, each lane its suffix entries) and again until
 //   every word carries the step, and no fence or flag is needed. The
 //   consumer's ack (steps consumed), in the producer's shared memory, keeps
-//   the producer `depth` steps ahead at most.
+//   the producer kDepth steps ahead at most.
 // - The next step's code (from a warp-wide chunk of 32 codes, shuffled) and
 //   emission scores are fetched while a step runs. Rows stop at their
 //   length: past it every emission is NEG, so no best and no payload could
@@ -79,6 +79,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "handoff.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -89,6 +91,7 @@ constexpr int kLanes = 32;
 constexpr int kMaxCluster = 8;
 constexpr int kMaxSmem = 232448;  // 227 KB a block
 constexpr int kCtlBytes = 32;     // a warp's ack word and final pick
+constexpr int kDepth = 4;         // slots of a hand-off ring
 constexpr int kMaxT = 65536;      // steps a row (a payload packs a step in 16 bits)
 
 // threads a block may have at K columns a lane (each instantiation's bound)
@@ -106,8 +109,8 @@ __host__ __device__ inline int slot_words(int W, bool scan) {
   return scan ? 8 + 2 * W : 3 + W;
 }
 
-__host__ __device__ inline int64_t smem_bytes(int P, int R, int depth, int W, bool scan) {
-  return (int64_t)P * R * ((int64_t)depth * slot_words(W, scan) * 8 + kCtlBytes);
+__host__ __device__ inline int64_t smem_bytes(int P, int R, int W, bool scan) {
+  return (int64_t)P * R * ((int64_t)kDepth * slot_words(W, scan) * 8 + kCtlBytes);
 }
 
 struct Args {
@@ -137,53 +140,9 @@ struct Cfg {
   int P;      // stages (warps) of a row in a block
   int R;      // rows a block
   int C;      // blocks a row spans (cluster size)
-  int depth;  // slots of a hand-off ring
   int W;      // closure window; 0: exact (scan pass)
   int slot;   // 64-bit words a slot
 };
-
-// Rings and ack words are read only by the warp that owns them (volatile
-// loads of this block's shared memory) and written by their neighbour,
-// through shared::cluster addresses (this block's, or another block's of
-// the cluster from mapa).
-__device__ __forceinline__ uint64_t ld_word(uint32_t a) {
-  uint64_t v;
-  asm volatile("ld.volatile.shared.b64 %0, [%1];" : "=l"(v) : "r"(a) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ uint32_t ld_ack(uint32_t a) {
-  uint32_t v;
-  asm volatile("ld.volatile.shared.u32 %0, [%1];" : "=r"(v) : "r"(a) : "memory");
-  return v;
-}
-
-// a tagged word into a neighbour's ring: another block's (remote) or this
-// block's (a plain shared store)
-__device__ __forceinline__ void st_word(bool remote, uint32_t a, uint32_t tag, uint32_t bits) {
-  const uint64_t v = ((uint64_t)tag << 32) | bits;
-  if (remote)
-    asm volatile("st.relaxed.cluster.shared::cluster.b64 [%0], %1;" ::"r"(a), "l"(v) : "memory");
-  else
-    asm volatile("st.volatile.shared.b64 [%0], %1;" ::"r"(a), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ void st_ack(bool remote, uint32_t a, uint32_t v) {
-  if (remote)
-    asm volatile("st.relaxed.cluster.shared::cluster.u32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
-  else
-    asm volatile("st.volatile.shared.u32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ uint32_t map_rank(uint32_t a, int rank) {
-  uint32_t d;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(rank));
-  return d;
-}
-
-__device__ __forceinline__ bool has_tag(uint64_t v, uint32_t tag) {
-  return (uint32_t)(v >> 32) == tag;
-}
 
 __device__ __forceinline__ uint32_t fbits(float x) { return __float_as_uint(x); }
 // a payload (ts: the step an alignment starts at, < 65536; js: its first
@@ -220,7 +179,6 @@ viterbi_kernel(Args p, Cfg c) {
   const int j0 = stage * S + lane * K;
   const int W = WT > 0 ? WT : c.W;
   const bool exact = SCAN && W <= 0;
-  const int depth = c.depth;
 
   const int m = row_ok ? row / p.B : 0;
   const int b = row_ok ? row - m * p.B : 0;
@@ -235,7 +193,7 @@ viterbi_kernel(Args p, Cfg c) {
   // acked, [1..5): the final pick); the ring it posts into and the ack word
   // of its producer: a neighbouring warp's, or across the cluster the first
   // (last) warp of the row in the next (previous) block
-  const int ring_words = depth * c.slot;
+  const int ring_words = kDepth * c.slot;
   const size_t wbytes = (size_t)ring_words * 8 + kCtlBytes;
   unsigned char* mine = smem_raw + (size_t)wib * wbytes;
   uint64_t* in_ring = (uint64_t*)mine;
@@ -310,9 +268,9 @@ viterbi_kernel(Args p, Cfg c) {
 
   for (int t = 0; active && t < t_end; ++t) {
     const uint32_t tag = (uint32_t)t + 1;
-    // the consumer's ack, read early: the post below needs step t + 1 - depth
+    // the consumer's ack, read early: the post below needs step t + 1 - kDepth
     uint32_t ack_early = acked;
-    if (has_right && lane == 0 && t >= depth && acked < tag - (uint32_t)depth)
+    if (has_right && lane == 0 && t >= kDepth && acked < tag - (uint32_t)kDepth)
       ack_early = ld_ack(ack_a);
     // ---- this step's code and emissions
     if ((t & 31) == 0 && t > 0) {
@@ -608,8 +566,8 @@ viterbi_kernel(Args p, Cfg c) {
 
     // ---- post this step's slot to the right neighbour
     if (has_right) {
-      if (lane == 0 && t >= depth) {
-        const uint32_t need = tag - (uint32_t)depth;
+      if (lane == 0 && t >= kDepth) {
+        const uint32_t need = tag - (uint32_t)kDepth;
         acked = max(acked, ack_early);
         while (acked < need) acked = ld_ack(ack_a);
       }
@@ -640,7 +598,7 @@ viterbi_kernel(Args p, Cfg c) {
         }
       }
     }
-    si = si + 1 == depth ? 0 : si + 1;
+    si = si + 1 == kDepth ? 0 : si + 1;
   }
 
   // ---- the final pick: lanes, then the row's warps and cluster blocks in
@@ -708,11 +666,11 @@ viterbi_kernel(Args p, Cfg c) {
 }
 
 template <bool SCAN>
-int launch(const Args& a, int K, int P, int R, int C, int depth, int W, cudaStream_t stream) {
+int launch(const Args& a, int K, int P, int R, int C, int W, cudaStream_t stream) {
   const bool ok_k = K == 1 || K == 2 || K == 4 || K == 8;
-  if (!ok_k || P < 1 || R < 1 || C < 1 || C > kMaxCluster || depth < 2 || a.Lp <= 0 ||
+  if (!ok_k || P < 1 || R < 1 || C < 1 || C > kMaxCluster || a.Lp <= 0 ||
       a.rows <= 0 || 32 * P * R > max_threads(K) || (int64_t)kLanes * K * P * C < a.Lp ||
-      W < (SCAN ? 0 : 1) || W > kLanes * K || smem_bytes(P, R, depth, W, SCAN) > kMaxSmem ||
+      W < (SCAN ? 0 : 1) || W > kLanes * K || smem_bytes(P, R, W, SCAN) > kMaxSmem ||
       a.T >= kMaxT)
     return (int)cudaErrorInvalidValue;
   void (*kern)(Args, Cfg) = nullptr;
@@ -723,13 +681,13 @@ int launch(const Args& a, int K, int P, int R, int C, int depth, int W, cudaStre
     case 4: kern = w16 ? viterbi_kernel<4, SCAN, 16> : viterbi_kernel<4, SCAN, 0>; break;
     default: kern = w16 ? viterbi_kernel<8, SCAN, 16> : viterbi_kernel<8, SCAN, 0>; break;
   }
-  const int smem = (int)smem_bytes(P, R, depth, W, SCAN);
+  const int smem = (int)smem_bytes(P, R, W, SCAN);
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const Cfg cfg = {P, R, C, depth, W, slot_words(W, SCAN)};
+  const Cfg cfg = {P, R, C, W, slot_words(W, SCAN)};
   const int64_t groups = ((int64_t)a.rows + R - 1) / R;
   cudaLaunchConfig_t lc = {};
   lc.gridDim = dim3((unsigned)(groups * C));
@@ -766,40 +724,40 @@ Args profile_args(const void* msc, const void* isc, const void* tmm, const void*
 
 // Shared memory bytes a block of the configuration takes (ops/phmm.py's
 // viterbi_config mirrors this; chip_smoke.py holds the two equal).
-extern "C" long long mfx_viterbi_smem_bytes(int P, int R, int depth, int window, int scan) {
-  return (long long)smem_bytes(P, R, depth, window, scan != 0);
+extern "C" long long mfx_viterbi_smem_bytes(int P, int R, int window, int scan) {
+  return (long long)smem_bytes(P, R, window, scan != 0);
 }
 
 // Pass 1: out[Mn, B] best scores of every stacked model on every window.
 // Profile arrays are [Mn, Lp, 4] (msc, isc) and [Mn, Lp] (transitions,
 // cdd), entry and model_lens [Mn]; seqs [B, T] int8, lengths [B] int32.
 // window: the closure's width, the least power of two >= max(band, 2).
-// K, P, R, C, depth: the layout (ops/phmm.py viterbi_config).
+// K, P, R, C: the layout (ops/phmm.py viterbi_config).
 extern "C" int mfx_viterbi_scores(
     const void* msc, const void* isc, const void* tmm, const void* tim,
     const void* tdm, const void* tmi, const void* tii, const void* tmd,
     const void* cdd, const void* entry, const void* model_lens, int Mn,
     const void* seqs, const void* lengths, int B, int T, int Lp, int window,
-    int K, int P, int R, int C, int depth, void* out, void* stream) {
+    int K, int P, int R, int C, void* out, void* stream) {
   if (Mn <= 0 || B <= 0) return (int)cudaSuccess;
   Args a = profile_args(msc, isc, tmm, tim, tdm, tmi, tii, tmd, cdd, entry, seqs,
                         lengths, B, T, Lp);
   a.model_lens = (const int32_t*)model_lens;
   a.rows = Mn * B;
   a.out_score = (float*)out;
-  return launch<false>(a, K, P, R, C, depth, window, (cudaStream_t)stream);
+  return launch<false>(a, K, P, R, C, window, (cudaStream_t)stream);
 }
 
 // Pass 2: the best local score of one model on each window and its
 // envelope; out: [5, B] int32 words (score as float32 bits, seq_from,
 // seq_to, hmm_from, hmm_to). window: the least power of two >= band; 0 for
-// the exact closure. K, P, R, C, depth: the layout.
+// the exact closure. K, P, R, C: the layout.
 extern "C" int mfx_viterbi_scan(
     const void* msc, const void* isc, const void* tmm, const void* tim,
     const void* tdm, const void* tmi, const void* tii, const void* tmd,
     const void* cdd, const void* entry, int model_len, const void* seqs,
     const void* lengths, int B, int T, int Lp, int window, int K, int P, int R,
-    int C, int depth, void* out, void* stream) {
+    int C, void* out, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   Args a = profile_args(msc, isc, tmm, tim, tdm, tmi, tii, tmd, cdd, entry, seqs,
                         lengths, B, T, Lp);
@@ -811,5 +769,5 @@ extern "C" int mfx_viterbi_scan(
   a.out_to = o + 2 * (int64_t)B;
   a.out_hmm_from = o + 3 * (int64_t)B;
   a.out_hmm_to = o + 4 * (int64_t)B;
-  return launch<true>(a, K, P, R, C, depth, window, (cudaStream_t)stream);
+  return launch<true>(a, K, P, R, C, window, (cudaStream_t)stream);
 }

@@ -34,7 +34,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libmitoflex_kernels.so"
 SOURCES = ("filter.cu", "merge.cu", "sort.cu", "viterbi.cu", "sw.cu", "cyk.cu",
            "genewise.cu")
-HEADERS = ("merge_path.cuh",)
+HEADERS = ("merge_path.cuh", "handoff.cuh", "row_pipeline.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 
@@ -148,26 +148,32 @@ def library() -> ctypes.CDLL:
             # the profile's ten arrays, then (scores) model lengths and count
             # or (scan) the model length; windows, lengths, B, T, Lp, window,
             # the layout (columns a lane, warps a row, rows a block, cluster
-            # size, ring depth), output
-            lib.mfx_viterbi_scores.argtypes = [vp] * 10 + [vp, i32, vp, vp] + [i32] * 9 \
+            # size), output
+            lib.mfx_viterbi_scores.argtypes = [vp] * 10 + [vp, i32, vp, vp] + [i32] * 8 \
                 + [vp, vp]
             lib.mfx_viterbi_scores.restype = i32
-            lib.mfx_viterbi_scan.argtypes = [vp] * 10 + [i32, vp, vp] + [i32] * 9 + [vp, vp]
+            lib.mfx_viterbi_scan.argtypes = [vp] * 10 + [i32, vp, vp] + [i32] * 8 + [vp, vp]
             lib.mfx_viterbi_scan.restype = i32
-            # warps a row, rows a block, depth, window, scan pass
-            lib.mfx_viterbi_smem_bytes.argtypes = [i32] * 5
+            # warps a row, rows a block, window, scan pass
+            lib.mfx_viterbi_smem_bytes.argtypes = [i32] * 4
             lib.mfx_viterbi_smem_bytes.restype = ctypes.c_longlong
             # queries, q_lens, targets, t_lens, matrix, K, B, Lq, Lt, gap open
-            # and extend, scratch, output, stream
+            # and extend, the layout (columns a lane, warps a pair, cluster
+            # size, wide path fields, positions a step), scratch, output,
+            # stream
             lib.mfx_sw_align.argtypes = [vp] * 5 + [i32] * 4 + [ctypes.c_float] * 2 \
-                + [vp, vp, vp]
+                + [i32] * 5 + [vp, vp, vp]
             lib.mfx_sw_align.restype = i32
             # queries, q_lens, target codes, t_lens, matrix, K, B, Lq, T, stop
-            # code, gap open and extend, frameshift and stop penalties,
-            # scratch, output, stream
+            # code, gap open and extend, frameshift and stop penalties, the
+            # layout, scratch, output, stream
             lib.mfx_genewise_align.argtypes = [vp] * 5 + [i32] * 5 \
-                + [ctypes.c_float] * 4 + [vp, vp, vp]
+                + [ctypes.c_float] * 4 + [i32] * 5 + [vp, vp, vp]
             lib.mfx_genewise_align.restype = i32
+            # K, warps a pair, wide path fields, positions a step
+            for fn in (lib.mfx_sw_smem_bytes, lib.mfx_genewise_smem_bytes):
+                fn.argtypes = [i32] * 4
+                fn.restype = ctypes.c_longlong
             # step table, its rows, dispatch order, E states, their count,
             # single5, pair5, origins and codes, S, L, W, el_selfsc, deck,
             # output, sync buffer, epoch, stream

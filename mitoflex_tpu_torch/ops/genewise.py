@@ -50,7 +50,9 @@ import torch
 
 from .. import kernels
 from ..models import codon
-from .sw import _check_inputs, prefix_argmax
+from . import row_pipeline
+from .row_pipeline import PipelineConfig
+from .sw import prefix_argmax
 
 NEG = -1e30
 
@@ -210,12 +212,47 @@ def genewise_align_plain(
 # fields of the kernel's [6, B] int32 output, in WiseHits order (the score
 # as float32 bits)
 _OUT_ROWS = len(WiseHits._fields)
-# columns of one strip of the kernel (csrc/genewise.cu kStrip); a query
-# longer than that carries each target position's state across strips
-# through a [B, T, 12] int32 scratch tensor (H, E and F, each a value and
-# three path fields)
-KERNEL_STRIP = 128
-_BOUNDARY_WORDS = 12
+# 32-bit words a lane hands right a step for each of its bases
+# (csrc/genewise.cu): the F leaving its last column and that column's H and
+# E, each a value and 2 packed (3 wide) path words
+SLOT_WORDS = {False: 9, True: 12}
+# the packed path fields (qs | ts << 16, shifts) hold while Lq and T are
+# each at most this; longer rows take the wide instantiation
+KERNEL_PACK_LIMIT = 65535
+# the chooser's model of a stage step's time at (cols, rows) (a step at one
+# column and one base a lane being 1): a column reads six cells of history,
+# so more cells cost more than in the Smith-Waterman (measured on an H100,
+# PERF.md)
+STEP_COST = {(1, 1): 1.0, (2, 1): 1.25, (4, 1): 1.8, (1, 2): 1.3, (2, 2): 1.75}
+
+
+def genewise_packable(Lq: int, T: int) -> bool:
+    """Whether the packed path fields hold at these widths."""
+    return Lq <= KERNEL_PACK_LIMIT and T <= KERNEL_PACK_LIMIT
+
+
+def genewise_smem_bytes(cfg: PipelineConfig, K: int) -> int:
+    return row_pipeline.smem_bytes(cfg, K, True, row_pipeline.slot_words(cfg, SLOT_WORDS))
+
+
+def check_config(cfg: PipelineConfig, Lq: int, T: int, K: int) -> None:
+    row_pipeline.check_config(cfg, Lq, T, K, True, row_pipeline.slot_words(cfg, SLOT_WORDS),
+                              genewise_packable(Lq, T), "genewise_align")
+
+
+def genewise_config(Lq: int, T: int) -> PipelineConfig:
+    """The kernel's layout for hits of padded widths ``Lq`` and ``T``
+    (``row_pipeline.choose`` at STEP_COST, the same pipeline as the
+    Smith-Waterman kernel's); wide path fields where Lq or T exceeds
+    KERNEL_PACK_LIMIT."""
+    return row_pipeline.choose(Lq, T, not genewise_packable(Lq, T), STEP_COST,
+                               "genewise_align")
+
+
+def genewise_configs(Lq: int, T: int) -> list:
+    """Every layout ``genewise_config`` weighs at these widths, one an
+    instantiation (its pick among them)."""
+    return row_pipeline.layouts(Lq, T, not genewise_packable(Lq, T))
 
 
 def genewise_align(
@@ -228,33 +265,41 @@ def genewise_align(
     gap_extend: float = 3.0,
     fs_penalty: float = 15.0,
     stop_penalty: float = 20.0,
+    *,
+    _config=None,
 ) -> WiseHits:
     """Best frameshift-tolerant local alignment of query row i with the
     translated target row i, with its envelope and frameshift count.
     Tensors on a card: one launch of the kernel of ``csrc/genewise.cu`` for
-    every hit (each row stops at its own lengths; no host sync); on the
-    CPU: :func:`genewise_align_plain`."""
+    every hit (each row stops at its own lengths; no host sync; layout from
+    ``genewise_config``, ``_config`` forces one for the kernel's checks); on
+    the CPU: :func:`genewise_align_plain`."""
     dev = queries.device
     if dev.type == "cpu":
         return genewise_align_plain(queries, q_lens, target_aa, t_lens, submat, gap_open,
                                     gap_extend, fs_penalty, stop_penalty)
     if dev.type != "cuda":
         raise ValueError(f"genewise_align: unsupported device {dev}")
-    q_lens, t_lens, sub = _check_inputs(queries, q_lens, target_aa, t_lens, submat,
-                                        "genewise_align", "target_aa")
+    q_lens, t_lens, sub = row_pipeline.check_inputs(queries, q_lens, target_aa, t_lens,
+                                                    submat, "genewise_align", "target_aa")
     B, Lq = queries.shape
     T = target_aa.shape[1]
     out = torch.empty((_OUT_ROWS, B), dtype=torch.int32, device=dev)
     if B:
-        scratch = None
-        if Lq > KERNEL_STRIP and T:
-            scratch = torch.empty((B, T, _BOUNDARY_WORDS), dtype=torch.int32, device=dev)
+        K = sub.shape[0]
+        if _config is None:
+            cfg = genewise_config(Lq, T)
+        else:
+            cfg = PipelineConfig(*_config)
+            check_config(cfg, Lq, T, K)
+        scratch = row_pipeline.scratch(cfg, B, Lq, T, SLOT_WORDS, dev)
         err = kernels.launch(
             dev, kernels.library().mfx_genewise_align, queries.data_ptr(),
             q_lens.data_ptr(), target_aa.data_ptr(), t_lens.data_ptr(), sub.data_ptr(),
-            sub.shape[0], B, Lq, T, codon.STOP_CODE, float(gap_open), float(gap_extend),
-            float(fs_penalty), float(stop_penalty),
-            None if scratch is None else scratch.data_ptr(), out.data_ptr())
+            K, B, Lq, T, codon.STOP_CODE, float(gap_open), float(gap_extend),
+            float(fs_penalty), float(stop_penalty), cfg.cols, cfg.warps, cfg.cluster,
+            int(cfg.wide), cfg.rows, None if scratch is None else scratch.data_ptr(),
+            out.data_ptr())
         if err:
             kernels.check(err, "genewise_align")
         genewise_align.launches += 1

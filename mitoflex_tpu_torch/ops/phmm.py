@@ -288,7 +288,7 @@ KERNEL_COLS = (1, 2, 4, 8)       # the instantiations of K
 KERNEL_MAX_LP = 8192             # the widest padded model the kernel takes
 KERNEL_MAX_CLUSTER = 8           # the portable cluster size
 KERNEL_MAX_SMEM = 232448         # 227 KB of shared memory a block
-KERNEL_DEPTH = 4                 # slots of a hand-off ring (2 at least)
+KERNEL_DEPTH = 4                 # slots of a hand-off ring (kDepth)
 KERNEL_MAX_T = 65535             # steps a row: a payload packs a step in 16 bits
 # a call of at most SMs / SPREAD_ROWS rows spreads each row over a cluster
 # of SPREAD_COLS-column lanes, where a row's step time is the call's time;
@@ -307,7 +307,6 @@ class ViterbiConfig(NamedTuple):
     warps: int    # P: stages of a row in a block
     rows: int     # R: rows a block
     cluster: int  # C: blocks a row spans
-    depth: int    # slots of each hand-off ring
 
     @property
     def stage_width(self) -> int:
@@ -325,13 +324,13 @@ def kernel_max_threads(cols: int) -> int:
 
 
 def kernel_smem_bytes(cfg: ViterbiConfig, window: int, scan: bool) -> int:
-    """Shared memory a block takes: per warp a ring of ``depth`` slots of
+    """Shared memory a block takes: per warp a ring of KERNEL_DEPTH slots of
     64-bit words (scan: M, I, D, their three packed payloads, the exact
     closure's carry and its payload, W suffix values and W payloads; scores:
     M, I, D and W suffix values) and 32 bytes of ack and final pick
     (``smem_bytes`` of the source)."""
     slot = 8 + 2 * window if scan else 3 + window
-    return cfg.warps * cfg.rows * (cfg.depth * slot * 8 + 32)
+    return cfg.warps * cfg.rows * (KERNEL_DEPTH * slot * 8 + 32)
 
 
 def check_config(cfg: ViterbiConfig, Lp: int, window: int, scan: bool) -> None:
@@ -344,8 +343,6 @@ def check_config(cfg: ViterbiConfig, Lp: int, window: int, scan: bool) -> None:
         problems.append(f"{cfg.threads} threads a block")
     if min(cfg.warps, cfg.rows, cfg.cluster) < 1 or cfg.cluster > KERNEL_MAX_CLUSTER:
         problems.append(f"warps {cfg.warps}, rows {cfg.rows}, cluster {cfg.cluster}")
-    if cfg.depth < 2:
-        problems.append(f"ring depth {cfg.depth}")
     if cfg.stage_width * cfg.warps * cfg.cluster < Lp:
         problems.append(f"{cfg.stage_width * cfg.warps * cfg.cluster} columns for Lp {Lp}")
     if window > cfg.stage_width or window < (0 if scan else 1):
@@ -396,7 +393,7 @@ def viterbi_config(Lp: int, rows: int, window: int, scan: bool,
     # share an SM (the largest pick, K 8 at window 256, takes 133 KB of
     # shared memory; check_config holds every pick to the card's limits)
     R = 1 if spread else max(1, kernel_max_threads(K) // (LANES * P * 2))
-    cfg = ViterbiConfig(K, P, R, C, KERNEL_DEPTH)
+    cfg = ViterbiConfig(K, P, R, C)
     check_config(cfg, Lp, window, scan)
     return cfg
 

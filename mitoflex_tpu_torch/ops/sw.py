@@ -40,6 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from . import row_pipeline
+from .row_pipeline import PipelineConfig
 
 NEG = -1e30
 
@@ -194,46 +196,48 @@ def sw_align_plain(
 # fields of the kernel's [9, B] int32 output, in SwHits order (the score as
 # float32 bits)
 _OUT_ROWS = len(SwHits._fields)
-# columns of one strip of the kernel (csrc/sw.cu kStrip); a query longer
-# than that carries each target position's state across strips through a
-# [B, Lt, 14] int32 scratch tensor
-KERNEL_STRIP = 128
-_BOUNDARY_WORDS = 14
+
+# The kernel's layouts are ops/row_pipeline.py's (csrc/row_pipeline.cuh,
+# shared with csrc/genewise.cu). The packed path fields (qs | ts << 16,
+# id | nc << 16, go | gc << 16) hold while Lq + Lt is at most this; a longer
+# row takes the wide instantiation
+KERNEL_PACK_LIMIT = 65535
+# 32-bit words a lane hands right a step for each of its positions: F
+# leaving its last column and that column's H, each a value and 3 packed (6
+# wide) path words
+SLOT_WORDS = {False: 8, True: 14}
+# the chooser's model of a stage step's time at (cols, rows), a step at one
+# column and one position a lane being 1: a lone warp's step is mostly its
+# hand-offs and fetches, so more columns or positions add little (measured
+# on an H100, PERF.md)
+STEP_COST = {(1, 1): 1.0, (2, 1): 1.08, (4, 1): 1.3, (1, 2): 1.52, (2, 2): 1.8}
 
 
-def _check_inputs(queries: torch.Tensor, q_lens: torch.Tensor, targets: torch.Tensor,
-                  t_lens: torch.Tensor, submat, what: str = "sw_align",
-                  targets_name: str = "targets") -> tuple:
-    """The lengths as int32 and the matrix as a float32 tensor on the
-    queries' device; ValueError naming ``what`` unless its kernel takes
-    these arguments: int8 queries [B, Lq] and targets [B, Lt], integer
-    lengths [B], a square matrix, all contiguous on one device. Lengths of
-    another integer type, and a matrix in another type, are converted there;
-    a matrix given as an array is converted on the host, so that a call
-    launches no kernel but its own."""
-    dev = queries.device
-    for name, x in (("queries", queries), (targets_name, targets)):
-        if x.dim() != 2 or x.dtype != torch.int8 or not x.is_contiguous() \
-                or x.device != dev:
-            raise ValueError(f"{what}: {name} must be a contiguous int8 tensor [B, L] "
-                             f"on {dev}, got {x.dtype} {list(x.shape)} on {x.device}")
-    B = queries.shape[0]
-    if targets.shape[0] != B:
-        raise ValueError(f"{what}: {B} queries but {targets.shape[0]} targets")
-    lens = []
-    for name, x in (("q_lens", q_lens), ("t_lens", t_lens)):
-        if x.dtype.is_floating_point or x.dtype.is_complex or x.dtype == torch.bool \
-                or tuple(x.shape) != (B,) or x.device != dev:
-            raise ValueError(f"{what}: {name} must be an integer tensor [{B}] on {dev}, "
-                             f"got {x.dtype} {list(x.shape)} on {x.device}")
-        lens.append(x.to(torch.int32).contiguous())
-    sub = submat if isinstance(submat, torch.Tensor) \
-        else torch.from_numpy(np.ascontiguousarray(submat, dtype=np.float32)).to(dev)
-    if sub.device != dev or sub.dim() != 2 or sub.shape[0] != sub.shape[1] \
-            or sub.shape[0] < 1:
-        raise ValueError(f"{what}: submat must be a square [K, K] matrix on {dev}, got "
-                         f"{list(sub.shape)} on {sub.device}")
-    return lens[0], lens[1], sub.to(torch.float32).contiguous()
+def sw_packable(Lq: int, Lt: int) -> bool:
+    """Whether the packed path fields hold at these widths."""
+    return Lq + Lt <= KERNEL_PACK_LIMIT
+
+
+def sw_smem_bytes(cfg: PipelineConfig, K: int) -> int:
+    return row_pipeline.smem_bytes(cfg, K, False, row_pipeline.slot_words(cfg, SLOT_WORDS))
+
+
+def check_config(cfg: PipelineConfig, Lq: int, Lt: int, K: int) -> None:
+    row_pipeline.check_config(cfg, Lq, Lt, K, False, row_pipeline.slot_words(cfg, SLOT_WORDS),
+                              sw_packable(Lq, Lt), "sw_align")
+
+
+def sw_config(Lq: int, Lt: int) -> PipelineConfig:
+    """The kernel's layout for pairs of padded widths ``Lq`` and ``Lt``
+    (``row_pipeline.choose`` at STEP_COST); wide path fields where Lq + Lt
+    exceeds KERNEL_PACK_LIMIT."""
+    return row_pipeline.choose(Lq, Lt, not sw_packable(Lq, Lt), STEP_COST, "sw_align")
+
+
+def sw_configs(Lq: int, Lt: int) -> list:
+    """Every layout ``sw_config`` weighs at these widths, one an
+    instantiation (its pick among them)."""
+    return row_pipeline.layouts(Lq, Lt, not sw_packable(Lq, Lt))
 
 
 def sw_align(
@@ -244,30 +248,39 @@ def sw_align(
     submat,                  # [K, K] substitution scores (array or tensor)
     gap_open: float = 11.0,
     gap_extend: float = 1.0,
+    *,
+    _config=None,
 ) -> SwHits:
     """Best local alignment of query row i with target row i, with its
     envelope and path counts. Tensors on a card: one launch of the kernel
     of ``csrc/sw.cu`` for the whole batch (each row stops at its own
-    lengths; no host sync); on the CPU: :func:`sw_align_plain`."""
+    lengths; no host sync; layout from ``sw_config``, ``_config`` forces one
+    for the kernel's checks); on the CPU: :func:`sw_align_plain`."""
     dev = queries.device
     if dev.type == "cpu":
         return sw_align_plain(queries, q_lens, targets, t_lens, submat, gap_open,
                               gap_extend)
     if dev.type != "cuda":
         raise ValueError(f"sw_align: unsupported device {dev}")
-    q_lens, t_lens, sub = _check_inputs(queries, q_lens, targets, t_lens, submat)
+    q_lens, t_lens, sub = row_pipeline.check_inputs(queries, q_lens, targets, t_lens, submat,
+                                                    "sw_align")
     B, Lq = queries.shape
     Lt = targets.shape[1]
     out = torch.empty((_OUT_ROWS, B), dtype=torch.int32, device=dev)
     if B:
-        scratch = None
-        if Lq > KERNEL_STRIP and Lt:
-            scratch = torch.empty((B, Lt, _BOUNDARY_WORDS), dtype=torch.int32, device=dev)
+        K = sub.shape[0]
+        if _config is None:
+            cfg = sw_config(Lq, Lt)
+        else:
+            cfg = PipelineConfig(*_config)
+            check_config(cfg, Lq, Lt, K)
+        scratch = row_pipeline.scratch(cfg, B, Lq, Lt, SLOT_WORDS, dev)
         err = kernels.launch(
             dev, kernels.library().mfx_sw_align, queries.data_ptr(), q_lens.data_ptr(),
-            targets.data_ptr(), t_lens.data_ptr(), sub.data_ptr(), sub.shape[0], B, Lq,
-            Lt, float(gap_open), float(gap_extend),
-            None if scratch is None else scratch.data_ptr(), out.data_ptr())
+            targets.data_ptr(), t_lens.data_ptr(), sub.data_ptr(), K, B, Lq, Lt,
+            float(gap_open), float(gap_extend), cfg.cols, cfg.warps, cfg.cluster,
+            int(cfg.wide), cfg.rows, None if scratch is None else scratch.data_ptr(),
+            out.data_ptr())
         if err:
             kernels.check(err, "sw_align")
         sw_align.launches += 1

@@ -455,10 +455,446 @@ def check_viterbi(device) -> Tuple[int, int]:
     return n_cases, n_calls
 
 
+# ------------------------------------------- the DP pipeline's order of work
+# csrc/row_pipeline.cuh: stage s of a round starts this many steps after
+# stage s - 1 in the model's schedule (lane 31 posts position t at step
+# t + 31; the next stage reads it at its step t)
+PIPE_STAGE_LAG = 33
+
+
+def _cells(shape, v, N: int):
+    """A cell array: values [shape] float32 and path words [shape, N] uint32."""
+    return [np.full(shape, v, np.float32), np.zeros(tuple(shape) + (N,), np.uint32)]
+
+
+def _sel(p, a, b):
+    return [np.where(p, a[0], b[0]), np.where(p[..., None], a[1], b[1])]
+
+
+def _tree(state, fn, other=None):
+    """``fn`` over the arrays of a model state (dicts and lists of arrays),
+    with the matching array of ``other`` where given."""
+    if isinstance(state, dict):
+        return {k: _tree(v, fn, None if other is None else other[k]) for k, v in state.items()}
+    if isinstance(state, list):
+        return [_tree(v, fn, None if other is None else other[i]) for i, v in enumerate(state)]
+    return fn(state) if other is None else fn(state, other)
+
+
+def _put(w, o: int, c) -> None:
+    w[..., o] = c[0].view(np.uint32)
+    w[..., o + 1: o + 1 + c[1].shape[-1]] = c[1]
+
+
+def _get(w, o: int, N: int):
+    return [np.ascontiguousarray(w[..., o]).view(np.float32), w[..., o + 1: o + 1 + N].copy()]
+
+
+class _SwModel:
+    """csrc/sw.cu's recurrence on [S, 32, B] lanes (SwRec): path words packed
+    (qs | ts << 16, id | nc << 16, go | gc << 16) or wide (six words)."""
+
+    stop = False
+
+    def __init__(self, C: int, R: int, wide: bool, gap_open: float, gap_extend: float):
+        self.C, self.R, self.wide = C, R, wide
+        self.N = 6 if wide else 3
+        self.row = 2 * (1 + self.N)
+        self.slot = R * self.row
+        self.go, self.ge = np.float32(gap_open), np.float32(gap_extend)
+
+    def fresh(self, j, t):
+        j = np.asarray(j, np.uint32)
+        t = np.asarray(t, np.uint32)
+        z = np.zeros(np.broadcast(j, t).shape, np.uint32)
+        if self.wide:
+            return np.stack([j + z, t + z, z, z, z, z], -1)
+        return np.stack([(j | (t << np.uint32(16))) + z, z, z], -1)
+
+    def diag(self, w, match) -> None:
+        m = match.astype(np.uint32)
+        if self.wide:
+            w[..., 2] += m
+            w[..., 3] += np.uint32(1)
+        else:
+            w[..., 1] += m + np.uint32(1 << 16)
+
+    def gap(self, w, opened) -> None:
+        o = opened.astype(np.uint32)
+        if self.wide:
+            w[..., 3] += np.uint32(1)
+            w[..., 4] += o
+            w[..., 5] += np.uint32(1)
+        else:
+            w[..., 1] += np.uint32(1 << 16)
+            w[..., 2] += o + np.uint32(1 << 16)
+
+    def field(self, w, f: int):
+        if self.wide:
+            return w[..., f].astype(np.int64)
+        x = w[..., f >> 1]
+        return (x >> np.uint32(16) if f & 1 else x & np.uint32(0xFFFF)).astype(np.int64)
+
+    def reset(self, shape) -> dict:
+        N, R = self.N, self.R
+        return {"H": [_cells(shape, 0.0, N) for _ in range(self.C)],
+                "E": [_cells(shape, -1e30, N) for _ in range(self.C)],
+                "lF": [_cells(shape, -1e30, N) for _ in range(R)],
+                "fo": [_cells(shape, -1e30, N) for _ in range(R)],
+                "lH": [_cells(shape, 0.0, N) for _ in range(R)],
+                "ho": [_cells(shape, 0.0, N) for _ in range(R)],
+                "dg": _cells(shape, 0.0, N)}
+
+    def take(self, L: dict, w, m) -> None:
+        for r in range(self.R):
+            o = r * self.row
+            L["lF"][r] = _sel(m, _get(w, o, self.N), L["lF"][r])
+            L["lH"][r] = _sel(m, _get(w, o + 1 + self.N, self.N), L["lH"][r])
+
+    def put(self, L: dict, w) -> None:
+        for r in range(self.R):
+            _put(w, r * self.row, L["fo"][r])
+            _put(w, r * self.row + 1 + self.N, L["ho"][r])
+
+    def step(self, L: dict, offer, act, u, j0, qlen, tlen, xs, qc, ss) -> None:
+        for r in range(self.R):
+            self._row(L, offer, act, u * self.R + r, j0, qlen, tlen, xs[r], qc, ss[r],
+                      L["dg"] if r == 0 else L["lH"][r - 1], r)
+        L["dg"] = _sel(act, L["lH"][self.R - 1], L["dg"])
+
+    def _row(self, L: dict, offer, act, t, j0, qlen, tlen, x, qc, s, dg, r) -> None:
+        f = L["lF"][r]
+        for c in range(self.C):
+            j = j0 + c
+            m = act & (j < qlen)
+            h_old, E = L["H"][c], L["E"][c]
+            e_open, e_ext = h_old[0] - self.go, E[0] - self.ge
+            eo = e_open >= e_ext
+            e = _sel(eo, h_old, E)
+            e[0] = np.where(eo, e_open, e_ext)
+            self.gap(e[1], eo)
+            fresh = dg[0] <= 0
+            d = [dg[0], np.where(fresh[..., None], self.fresh(j, t), dg[1])]
+            cand = np.where(fresh, np.float32(0), dg[0]) + s[c]
+            self.diag(d[1], qc[c] == x)
+            ud = cand >= e[0]
+            hp = _sel(ud, d, e)
+            hp[0] = np.where(ud, cand, e[0])
+            h = _sel(f[0] > hp[0], f, hp)
+            h[0] = np.maximum(h[0], np.float32(0))
+            offer(m & (t < tlen), h, j, t)
+            f_ext, f_open = f[0] - self.ge, hp[0] - self.go
+            fo = ~(f_ext >= f_open)
+            nf = _sel(fo, hp, f)
+            nf[0] = np.where(fo, f_open, f_ext)
+            self.gap(nf[1], fo)
+            L["E"][c] = _sel(m, e, E)
+            L["H"][c] = _sel(m, h, h_old)
+            f = _sel(m, nf, f)
+            dg = _sel(m, h_old, dg)
+        L["fo"][r] = _sel(act, f, L["fo"][r])
+        L["ho"][r] = _sel(act, L["H"][self.C - 1], L["ho"][r])
+
+    def answer(self, v, j, t, w) -> tuple:
+        i32 = np.int32
+        return (v, self.field(w, 0).astype(i32), j.astype(i32), self.field(w, 1).astype(i32),
+                t.astype(i32), *(self.field(w, f).astype(i32) for f in (2, 3, 4, 5)))
+
+
+class _WiseModel:
+    """csrc/genewise.cu's recurrence on [S, 32, B] lanes (WiseRec): H at
+    p0-1 .. p0-5 and E at p0-1 .. p0-3 of each lane's columns and of the
+    column on its left before a block of R bases; inside the block the
+    cells of its earlier bases; path words packed (qs | ts << 16, shifts)
+    or wide (three words)."""
+
+    stop = True
+
+    def __init__(self, C: int, R: int, wide: bool, gap_open: float, gap_extend: float,
+                 fs_penalty: float):
+        self.C, self.R, self.wide = C, R, wide
+        self.N = 3 if wide else 2
+        self.row = 3 * (1 + self.N)
+        self.slot = R * self.row
+        self.go, self.ge = np.float32(gap_open), np.float32(gap_extend)
+        self.fs = np.float32(fs_penalty)
+
+    def fresh(self, j, t):
+        j = np.asarray(j, np.uint32)
+        ts = np.maximum(np.asarray(t, np.int64) - 2, 0).astype(np.uint32)
+        z = np.zeros(np.broadcast(j, ts).shape, np.uint32)
+        if self.wide:
+            return np.stack([j + z, ts + z, z], -1)
+        return np.stack([(j | (ts << np.uint32(16))) + z, z], -1)
+
+    def field(self, w, f: int):
+        if self.wide:
+            return w[..., f].astype(np.int64)
+        if f == 2:
+            return w[..., 1].astype(np.int64)
+        return (w[..., 0] >> np.uint32(16) if f else w[..., 0] & np.uint32(0xFFFF)) \
+            .astype(np.int64)
+
+    def reset(self, shape) -> dict:
+        N, R, neg = self.N, self.R, -1e30
+        return {"Hh": [[_cells(shape, neg, N) for _ in range(5)] for _ in range(self.C)],
+                "Eh": [[_cells(shape, neg, N) for _ in range(3)] for _ in range(self.C)],
+                "Lh": [_cells(shape, neg, N) for _ in range(5)],
+                "Le": [_cells(shape, neg, N) for _ in range(3)],
+                **{k: [_cells(shape, neg, N) for _ in range(R)]
+                   for k in ("lF", "pH", "pE", "fo", "ho", "eo")}}
+
+    def take(self, L: dict, w, m) -> None:
+        for r in range(self.R):
+            for i, k in enumerate(("lF", "pH", "pE")):
+                L[k][r] = _sel(m, _get(w, r * self.row + i * (1 + self.N), self.N), L[k][r])
+
+    def put(self, L: dict, w) -> None:
+        for r in range(self.R):
+            for i, k in enumerate(("fo", "ho", "eo")):
+                _put(w, r * self.row + i * (1 + self.N), L[k][r])
+
+    def step(self, L: dict, offer, act, u, j0, qlen, tlen, xs, qc, ss) -> None:
+        N, R, C, neg = self.N, self.R, self.C, np.float32(-1e30)
+        hn = [[None] * C for _ in range(R)]
+        en = [[None] * C for _ in range(R)]
+        for r in range(R):
+            t = u * R + r
+            f = L["lF"][r]
+            for c in range(C):
+                j = j0 + c
+                m = act & (j < qlen)
+
+                def back(i, cur, left, hist_c, hist_l):
+                    # column c - 1 (the left column for c == 0) at base p0 + i
+                    if i >= 0:
+                        return left[i] if c == 0 else cur[i][c - 1]
+                    return hist_l[-i - 1] if c == 0 else hist_c[c - 1][-i - 1]
+
+                a = [np.zeros(m.shape, np.float32),
+                     np.broadcast_to(self.fresh(j, t), m.shape + (N,)).copy()]
+                for dt in (3, 1, 2, 4, 5):
+                    hp = back(r - dt, hn, L["pH"], L["Hh"], L["Lh"])
+                    cand = np.where(hp[0] <= 0, neg, hp[0]) - (np.float32(0) if dt == 3 else self.fs)
+                    o = [hp[0], hp[1].copy()]
+                    if dt != 3:
+                        o[1][..., N - 1] += np.uint32(1)
+                    take = cand > a[0]
+                    a = _sel(take, o, a)
+                    a[0] = np.where(take, cand, a[0])
+                el = back(r - 3, en, L["pE"], L["Eh"], L["Le"])
+                a = _sel(el[0] > a[0], el, a)
+                i3 = r - 3
+                h3 = hn[i3][c] if i3 >= 0 else L["Hh"][c][-i3 - 1]
+                e3 = en[i3][c] if i3 >= 0 else L["Eh"][c][-i3 - 1]
+                e_open, e_ext = h3[0] - self.go, e3[0] - self.ge
+                eo = e_open >= e_ext
+                e = _sel(eo, h3, e3)
+                e[0] = np.where(eo, e_open, e_ext)
+                hc = [ss[r][c] + a[0], a[1]]
+                h = _sel(f[0] > hc[0], f, hc)
+                h[0] = np.maximum(h[0], neg)
+                offer(m & (t < tlen), h, j, t)
+                f_ext, f_open = f[0] - self.ge, hc[0] - self.go
+                fo = ~(f_ext >= f_open)
+                nf = _sel(fo, hc, f)
+                nf[0] = np.where(fo, f_open, f_ext)
+                f = _sel(m, nf, f)
+                negc = _cells(m.shape, neg, N)
+                hn[r][c] = _sel(m, h, negc)
+                en[r][c] = _sel(m, e, negc)
+            L["fo"][r] = _sel(act, f, L["fo"][r])
+            L["ho"][r] = _sel(act, hn[r][C - 1], L["ho"][r])
+            L["eo"][r] = _sel(act, en[r][C - 1], L["eo"][r])
+        # the histories move on R bases (the newest first)
+        for c in range(C):
+            L["Hh"][c] = [_sel(act, hn[R - 1 - k][c] if k < R else L["Hh"][c][k - R],
+                               L["Hh"][c][k]) for k in range(5)]
+            L["Eh"][c] = [_sel(act, en[R - 1 - k][c] if k < R else L["Eh"][c][k - R],
+                               L["Eh"][c][k]) for k in range(3)]
+        L["Lh"] = [_sel(act, L["pH"][R - 1 - k] if k < R else L["Lh"][k - R], L["Lh"][k])
+                   for k in range(5)]
+        L["Le"] = [_sel(act, L["pE"][R - 1 - k] if k < R else L["Le"][k - R], L["Le"][k])
+                   for k in range(3)]
+
+    def answer(self, v, j, t, w) -> tuple:
+        i32 = np.int32
+        return (v, self.field(w, 0).astype(i32), j.astype(i32), self.field(w, 1).astype(i32),
+                t.astype(i32), self.field(w, 2).astype(i32))
+
+
+def _pipeline_model(rec, queries, q_lens, targets, t_lens, submat, layout,
+                    stop_code: int = 0, stop_penalty: float = 0.0) -> tuple:
+    """numpy model of csrc/row_pipeline.cuh's order of work for recurrence
+    ``rec`` at ``layout`` (an ``ops.row_pipeline.PipelineConfig``: columns a
+    lane, positions a lane a step, the pair's stages warps x cluster; rings
+    of KERNEL_DEPTH slots). Rounds run one after another; in a round every
+    stage runs in lockstep, stage s PIPE_STAGE_LAG steps behind stage s - 1,
+    its lane l on block st - l (``rows`` positions). Lane 0 reads the left's slot for its position from
+    its inbound ring (slot seq % depth, tagged seq + 1; acked) or, in stage
+    0 after the first round, from the [B, Lt, slot] scratch row (tagged with
+    the round); lane 31 of a full strip posts into the next stage's ring
+    (after the ack shows slot seq + 1 - depth consumed) or the scratch row
+    (tagged round + 1); every lane's slot goes to lane + 1. Each read checks
+    its tags, each post its ack: the model raises AssertionError where the
+    kernel would wait. The answer: each lane's best (greater, or equal in an
+    earlier column), then the first column of the maximum over the lanes."""
+    f32 = np.float32
+    from ..ops.row_pipeline import KERNEL_DEPTH as depth
+
+    C, S, R = layout.cols, layout.warps * layout.cluster, layout.rows
+    sub = np.asarray(submat, np.float32)
+    K = sub.shape[0]
+    tab = np.concatenate([sub, np.full((K, 1), -f32(stop_penalty), np.float32)], 1) \
+        if rec.stop else sub
+    q = np.asarray(queries).astype(np.int64)
+    x_all = np.asarray(targets).astype(np.int64)
+    B, Lq = q.shape
+    Lt = x_all.shape[1]
+    ql = np.clip(np.asarray(q_lens, np.int64), 0, Lq)
+    tl = np.clip(np.asarray(t_lens, np.int64), 0, Lt)
+    Wd, N, W = 32 * C, rec.N, rec.slot
+    nstrips = -(-ql // Wd)
+    nblk = -(-tl // R)
+    shape = (S, 32, B)
+    lanes = np.arange(32)
+    sidx = np.arange(S)
+    bv = np.zeros(shape, np.float32)
+    bj = np.zeros(shape, np.int64)
+    bt = np.zeros(shape, np.int64)
+    bw = np.zeros(shape + (N,), np.uint32)
+
+    ring = np.zeros((S, depth, B, W), np.uint64)   # each stage's inbound ring
+    acked = np.zeros((S, B), np.int64)             # slots stage s has consumed
+    seq_in = np.zeros((S, B), np.int64)
+    seq_out = np.zeros((S, B), np.int64)
+    scratch = np.zeros((B, max(-(-Lt // R), 1), W), np.uint64)
+    hi_bits = np.uint64(32)
+    for rd in range(int(-(-nstrips.max() // S)) if B else 0):
+        strip = rd * S + sidx
+        part = strip[:, None] < nstrips[None, :]                      # [S, B]
+        s0 = strip * Wd
+        last_lane = (np.minimum(ql[None, :] - s0[:, None], Wd) - 1) // C
+        more = strip[:, None] + 1 < nstrips[None, :]
+        to_ring = more & (sidx + 1 < S)[:, None]
+        to_scr = more & (sidx + 1 == S)[:, None]
+        j0 = (s0[:, None] + lanes[None, :] * C)[:, :, None]           # [S, 32, 1]
+        qc = [np.where(j0 + c < ql, q[np.arange(B), np.minimum(j0 + c, Lq - 1)]
+                       .clip(0, K - 1), 0) for c in range(C)]
+        L = rec.reset(shape)
+        steps = np.where(part, nblk[None, :] + last_lane, 0)
+        for tau in range(int((PIPE_STAGE_LAG * sidx[:, None] + steps).max())):
+            st_all = tau - PIPE_STAGE_LAG * sidx
+            run_all = part & (st_all[:, None] >= 0) & (st_all[:, None] < steps)
+            rs = np.nonzero(run_all.any(1))[0]
+            if not len(rs):
+                continue
+            # the stages running at this step (the others' state is untouched)
+            lo, hi = int(rs[0]), int(rs[-1]) + 1
+            sl = slice(lo, hi)
+            st, running = st_all[sl], run_all[sl]
+            shp = (hi - lo, 32, B)
+            u = (st[:, None] - lanes[None, :])[:, :, None]             # [s, 32, 1]
+            act = running[:, None, :] & (lanes[None, :, None] <= last_lane[sl, None, :]) \
+                & (u >= 0) & (u < nblk[None, None, :])
+            Ls = _tree(L, lambda x: x[sl])
+            # lane 0: the left's slot at position st
+            reads = running & (st[:, None] < nblk[None, :])
+            w0 = np.zeros(shp + (W,), np.uint32)
+            m0 = np.zeros(shp, bool)
+            si, bi = np.nonzero(reads & (sidx[sl] > 0)[:, None])
+            if len(si):
+                seq = seq_in[si + lo, bi]
+                words = ring[si + lo, seq % depth, bi]
+                assert ((words >> hi_bits) == (seq + 1)[:, None].astype(np.uint64)).all(), \
+                    "a ring slot read before its post"
+                w0[si, 0, bi] = (words & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+                m0[si, 0, bi] = True
+                acked[si + lo, bi] = seq + 1
+                seq_in[si + lo, bi] = seq + 1
+            bi = np.nonzero(reads[0])[0] if rd > 0 and lo == 0 else ()
+            if len(bi):
+                words = scratch[bi, st[0]]
+                assert ((words >> hi_bits) == np.uint64(rd)).all(), \
+                    "a scratch slot read too early"
+                w0[0, 0, bi] = (words & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+                m0[0, 0, bi] = True
+            rec.take(Ls, w0, m0)
+            # the lanes' columns; codes outside the target read 0
+            qs = [c[sl] for c in qc]
+            xs, ss = [], []
+            for r in range(R):
+                tr = u * R + r
+                tc = np.clip(tr, 0, max(Lt - 1, 0))
+                x = x_all[np.arange(B)[None, None, :], tc] if Lt else np.zeros(shp, np.int64)
+                x = np.where((tr >= 0) & (tr < tl[None, None, :]), x, 0)
+                xi = np.clip(x, 0, K - 1)
+                if rec.stop:
+                    xi = np.where(x == stop_code, K, xi)
+                xs.append(x)
+                ss.append([tab[qs[c], xi] for c in range(C)])
+            best = (bv[sl], bj[sl], bt[sl], bw[sl])
+
+            def offer(m, h, j, tt, best=best):
+                v, jb, tb, wb = best
+                better = m & ((h[0] > v) | ((h[0] == v) & (j < jb)))
+                v[...] = np.where(better, h[0], v)
+                jb[...] = np.where(better, j, jb)
+                tb[...] = np.where(better, tt, tb)
+                wb[...] = np.where(better[..., None], h[1], wb)
+
+            rec.step(Ls, offer, act, u, j0[sl], ql[None, None, :], tl[None, None, :], xs, qs,
+                     ss)
+            # lane 31's post, then every lane's slot to the next lane
+            w = np.zeros(shp + (W,), np.uint32)
+            rec.put(Ls, w)
+            post = act[:, 31, :]
+            si, bi = np.nonzero(post & to_ring[sl])
+            if len(si):
+                seq = seq_out[si + lo, bi]
+                assert (acked[si + lo + 1, bi] >= seq + 1 - depth).all(), "a ring slot overrun"
+                ring[si + lo + 1, seq % depth, bi] = \
+                    ((seq + 1).astype(np.uint64)[:, None] << hi_bits) \
+                    | w[si, 31, bi].astype(np.uint64)
+                seq_out[si + lo, bi] = seq + 1
+            si, bi = np.nonzero(post & to_scr[sl])
+            if len(si):
+                scratch[bi, u[si, 31, 0]] = (np.uint64(rd + 1) << hi_bits) \
+                    | w[si, 31, bi].astype(np.uint64)
+            shifted = np.zeros_like(w)
+            shifted[:, 1:] = w[:, :-1]
+            m1 = np.broadcast_to(running[:, None, :], shp).copy()
+            m1[:, 0] = False
+            rec.take(Ls, shifted, m1)
+            _tree(L, lambda x, y: x.__setitem__(sl, y), Ls)
+    # the first column of the maximum over the pair's lanes
+    v = bv.reshape(-1, B)
+    top = v == v.max(0)
+    jj = np.where(top, bj.reshape(-1, B), np.iinfo(np.int64).max)
+    k = np.argmin(jj, 0)
+    cols = np.arange(B)
+    return rec.answer(v[k, cols], bj.reshape(-1, B)[k, cols], bt.reshape(-1, B)[k, cols],
+                      bw.reshape(-1, B, N)[k, cols])
+
+
+def sw_kernel_model(queries, q_lens, targets, t_lens, submat, gap_open, gap_extend,
+                    layout) -> tuple:
+    """numpy model of csrc/sw.cu at ``layout`` (``_pipeline_model``), every
+    sum a float32 operation and the path fields in the layout's words.
+    Returns the nine ``SwHits`` fields as numpy arrays (score float32, the
+    rest int32)."""
+    return _pipeline_model(_SwModel(layout.cols, layout.rows, layout.wide, gap_open, gap_extend),
+                           queries, q_lens, targets, t_lens, submat, layout)
+
+
 # ------------------------------------------------ Smith-Waterman cases
 SwCase = Tuple[str, np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray, float, float]
 # the query length of the blastn-size case (a whole contig against a window)
 SW_BLASTN_LQ = 16500
+# the long tier-1 case's query (its best alignment starts past 2^15) and the
+# card's case over the packed path fields' limit (Lq + Lt > 65,535)
+SW_LONG_LQ = 33000
+SW_WIDE_LQ = 65600
 
 
 def _sw_pairs(rng: np.random.Generator, q_lens, t_lens, K: int, fill: int,
@@ -489,15 +925,19 @@ def _sw_pairs(rng: np.random.Generator, q_lens, t_lens, K: int, fill: int,
     return q, q_lens, t, t_lens
 
 
-def sw_cases(seed: int = 2028, blastn_size: bool = True) -> Iterator[SwCase]:
+def sw_cases(seed: int = 2028, card_size: bool = True) -> Iterator[SwCase]:
     """(name, queries, q_lens, targets, t_lens, matrix, gap_open,
     gap_extend) for ``sw_align``: BLOSUM62 at (12, 1) and the nucleotide
     matrix at (7, 2) and (11, 1) on mutated copies; one query column; rows
     with q_len 0 and t_len 0; all-N and all-X rows; odd codes (negative and
     >= K); tandem repeats, whose best cells tie; a target holding its query
     twice; open == extend; query lengths on both sides of the kernel's
-    4-column lanes and 128-column strips (1 to 257); and, with
-    ``blastn_size``, a 16,500-column contig against 300-base windows."""
+    lanes and strips at 1, 2 and 4 columns a lane (1 to 257); a
+    33,000-column query whose best alignment starts past column 2^15 (its
+    packed path fields' 16-bit halves); and, with ``card_size``, a
+    16,500-column contig against 300-base windows (the blastn size) and a
+    65,600-column query against 200 bases (over the packed fields' limit,
+    so the wide instantiation)."""
     from ..io import encoding
     from ..models import codon
     from ..ops import sw
@@ -561,7 +1001,13 @@ def sw_cases(seed: int = 2028, blastn_size: bool = True) -> Iterator[SwCase]:
     ql = np.array([257, 256, 255, 129, 128, 127, 5, 4, 3, 1])
     yield ("Lq 257 wide: 1 to 3 strips", *_sw_pairs(rng, ql, ql + rng.integers(0, 60, 10),
                                                    naa, X), aa, 12.0, 1.0)
-    if blastn_size:
+    q = rng.integers(0, 4, (1, SW_LONG_LQ)).astype(np.int8)
+    t = q[:, SW_LONG_LQ - 14: SW_LONG_LQ + 2].copy()
+    t = np.concatenate([t, rng.integers(0, 4, (1, 16 - t.shape[1])).astype(np.int8)], 1)
+    t[0, 7] = (t[0, 7] + 1) % 4
+    yield (f"Lq {SW_LONG_LQ} x Lt 16: path fields past 2^15", q,
+           np.array([SW_LONG_LQ], np.int32), t, np.array([16], np.int32), nt, 7.0, 2.0)
+    if card_size:
         contig = rng.integers(0, 4, SW_BLASTN_LQ).astype(np.int8)
         q = np.stack([contig, contig])
         t = np.stack([contig[9000:9300].copy(), rng.integers(0, 4, 300).astype(np.int8)])
@@ -570,6 +1016,12 @@ def sw_cases(seed: int = 2028, blastn_size: bool = True) -> Iterator[SwCase]:
         yield ("blastn size: 16,500-column contig vs 300-base windows", q,
                np.array([SW_BLASTN_LQ, SW_BLASTN_LQ], np.int32), t,
                np.array([300, 297], np.int32), nt, 7.0, 2.0)
+        q = rng.integers(0, 4, (1, SW_WIDE_LQ)).astype(np.int8)
+        t = rng.integers(0, 4, (1, 200)).astype(np.int8)
+        t[0, 40:160] = q[0, SW_WIDE_LQ - 130: SW_WIDE_LQ - 10]
+        t[0, 90:93] = N
+        yield (f"over the packing limit: Lq {SW_WIDE_LQ} x Lt 200", q,
+               np.array([SW_WIDE_LQ], np.int32), t, np.array([200], np.int32), nt, 7.0, 2.0)
 
 
 def sw_tensors(case: SwCase, device) -> tuple:
@@ -582,28 +1034,72 @@ def sw_tensors(case: SwCase, device) -> tuple:
                  for x in (q, ql, t, tl, sub)), go, ge
 
 
-def check_sw(device, blastn_size: bool = True) -> int:
-    """Every case of :func:`sw_cases` through ``ops.sw.sw_align`` on
-    ``device`` (a card: the kernel), held against ``sw_align_plain`` on the
-    same tensors: all nine fields bit for bit (the score as float32 bits).
-    Raises AssertionError on the first difference; returns the number of
-    cases."""
+# a layout of two stages that wraps a query of more than 64 columns round
+# through the scratch row (the chooser gives a pair as many stages as its
+# strips where it can, so only very long queries wrap)
+WRAP_LAYOUT = (1, 2, 1, False)
+
+
+def pipeline_layouts(configs: list, own, wrap: bool = True) -> list:
+    """The layouts a check forces on a case: ``configs`` (every one the
+    chooser weighs at its widths, one an instantiation), the wide
+    instantiation at ``own`` (the chooser's pick for the case) where that is
+    packed, and, with ``wrap``, WRAP_LAYOUT at one and at two target
+    positions a step (packed where the widths allow it; it wraps round a
+    query over 64 columns)."""
+    from ..ops.row_pipeline import PipelineConfig
+
+    out = list(configs)
+    if not own.wide:
+        out.append(own._replace(wide=True))
+    if wrap:
+        for rows in (1, 2):
+            cfg = PipelineConfig(*WRAP_LAYOUT)._replace(wide=own.wide, rows=rows)
+            if cfg not in out:
+                out.append(cfg)
+    return out
+
+
+def sw_layouts(device, case: SwCase) -> list:
+    """The kernel layouts the check forces on a case (``pipeline_layouts``
+    at the chooser's layouts for its widths; none on the CPU, where the
+    wrapper takes the plain version)."""
     import torch
 
     from ..ops import sw
 
-    n_cases = 0
-    for case in sw_cases(blastn_size=blastn_size):
+    if torch.device(device).type != "cuda":
+        return [None]
+    _, q, _, t, _, _, _, _ = case
+    Lq, Lt = q.shape[1], t.shape[1]
+    return pipeline_layouts(sw.sw_configs(Lq, Lt), sw.sw_config(Lq, Lt),
+                            wrap=Lq < SW_BLASTN_LQ)
+
+
+def check_sw(device, card_size: bool = True) -> Tuple[int, int]:
+    """Every case of :func:`sw_cases` through ``ops.sw.sw_align`` on
+    ``device`` (a card: the kernel, at every layout of :func:`sw_layouts`),
+    held against ``sw_align_plain`` on the same tensors: all nine fields
+    bit for bit (the score as float32 bits). Raises AssertionError on the
+    first difference; returns the numbers of cases and of calls."""
+    import torch
+
+    from ..ops import sw
+
+    n_cases = n_calls = 0
+    for case in sw_cases(card_size=card_size):
         args, go, ge = sw_tensors(case, device)
-        got = sw.sw_align(*args, go, ge)
         want = sw.sw_align_plain(*args, go, ge)
-        for field, g, w in zip(sw.SwHits._fields, got, want):
-            if not torch.equal(g.contiguous().view(torch.int32),
-                               w.contiguous().view(torch.int32)):
-                raise AssertionError(f"sw_align {field} differs from its plain version: "
-                                     f"{case[0]}")
+        for cfg in sw_layouts(device, case):
+            got = sw.sw_align(*args, go, ge, _config=cfg)
+            n_calls += 1
+            for field, g, w in zip(sw.SwHits._fields, got, want):
+                if not torch.equal(g.contiguous().view(torch.int32),
+                                   w.contiguous().view(torch.int32)):
+                    raise AssertionError(f"sw_align {field} differs from its plain version: "
+                                         f"{case[0]}, layout {cfg}")
         n_cases += 1
-    return n_cases
+    return n_cases, n_calls
 
 
 # ------------------------------------------------------- banded CYK cases
@@ -765,6 +1261,10 @@ GENEWISE_TABLE = 5
 # (gap open, gap extend, frameshift, stop): the pipeline's, and the other
 # integer set that tests/test_torch_genewise.py holds against the JAX package
 GENEWISE_PENALTIES = ((13.0, 3.0, 15.0, 20.0), (10.0, 2.0, 8.0, 12.0))
+# the long tier-1 case's query (its best alignment starts past 2^15) and the
+# card's case over the packed path fields' limit (Lq > 65,535)
+GENEWISE_LONG_LQ = 33000
+GENEWISE_WIDE_LQ = 65600
 
 
 class GenewiseCase(NamedTuple):
@@ -833,14 +1333,18 @@ def _wise_batch(rows, q_fill: int, pad_q: int = 0, pad_t: int = 0
     return qa, ql, genewise.translate_windows(ta, GENEWISE_TABLE), tl
 
 
-def genewise_cases(seed: int = 2030) -> Iterator[GenewiseCase]:
+def genewise_cases(seed: int = 2030, card_size: bool = True) -> Iterator[GenewiseCase]:
     """Seeded ``genewise_align`` calls: frameshifts of every step (a base
     or two gained or lost), in-frame stops, N codons and substitutions at
     both integer penalty sets; a gene planted twice (two equal maxima, the
     first wins); query and target lengths of 0, 1 and 2; odd codes
-    (negative and >= K) in both; query lengths around the kernel's 4-column
-    lanes and 128-column strips (1 to 257); and a real-size hit: a 600-aa
-    protein (ND5's size) in a 2000-base window."""
+    (negative and >= K) in both; query lengths around the kernel's lanes
+    and strips at 1, 2 and 4 columns a lane (1 to 257); a real-size hit: a
+    600-aa protein (ND5's size) in a 2000-base window; a 33,000-residue
+    query whose best alignment starts past residue 2^15 (its packed path
+    fields' 16-bit halves); and, with ``card_size``, a 65,600-residue query
+    against 40 bases (over the packed fields' limit, so the wide
+    instantiation)."""
     from ..models import codon
 
     rng = np.random.default_rng(seed)
@@ -886,6 +1390,17 @@ def genewise_cases(seed: int = 2030) -> Iterator[GenewiseCase]:
     yield GenewiseCase("real size: 600 aa against 2000 bases",
                        *_wise_batch(rows, X), GENEWISE_PENALTIES[0])
 
+    for Lq, n_codons, what in ((GENEWISE_LONG_LQ, 5, "path fields past 2^15"),
+                               (GENEWISE_WIDE_LQ, 13, "over the packing limit")):
+        if Lq == GENEWISE_WIDE_LQ and not card_size:
+            break
+        pep, dna = _wise_gene(rng, n_codons, "clean", 0)
+        q = rng.integers(0, 20, Lq).astype(np.int8)
+        q[Lq - len(pep) - 7: Lq - 7] = pep
+        qa, ql, aa, tl = _wise_batch([(q, dna + "A")], X)
+        yield GenewiseCase(f"Lq {Lq} x T {len(dna) + 1}: {what}", qa, ql, aa, tl,
+                           GENEWISE_PENALTIES[0])
+
 
 def genewise_tensors(case: GenewiseCase, device) -> tuple:
     """A case's (queries, q_lens, target_aa, t_lens, BLOSUM62) as tensors on
@@ -900,140 +1415,44 @@ def genewise_tensors(case: GenewiseCase, device) -> tuple:
 
 
 def genewise_kernel_model(queries, q_lens, target_aa, t_lens, submat, gap_open=13.0,
-                          gap_extend=3.0, fs_penalty=15.0, stop_penalty=20.0) -> tuple:
-    """numpy model of csrc/genewise.cu's order of work, every sum a float32
-    operation: strips of KERNEL_STRIP query columns one after another; in a
-    strip, the cells of one anti-diagonal (base t, column c with t + c
-    fixed: the kernel's wavefront with one column a lane) together. A cell
-    reads rows t-1 to t-5 of its left neighbour and row t-3 of its own
-    column, which lie on the last seven anti-diagonals (kept here by
-    anti-diagonal, in the kernel by base); rows before 0 and the column left
-    of the query read NEG. F is carried cell to cell along the row in its
-    sequential form (extension on ties); each base's H and E of a strip's
-    last column and the F leaving it go to the next strip through a
-    [B, T, 12] int32 scratch row; the best cell is replaced on a greater
-    value or an equal one in an earlier column. Returns the six
+                          gap_extend=3.0, fs_penalty=15.0, stop_penalty=20.0,
+                          layout=None) -> tuple:
+    """numpy model of csrc/genewise.cu at ``layout`` (``_pipeline_model``;
+    default: ``genewise_config``'s pick), every sum a float32
+    operation and the path fields in the layout's words. Returns the six
     ``WiseHits`` fields as numpy arrays (score float32, the rest int32)."""
     from ..models import codon
-    from ..ops.genewise import KERNEL_STRIP, _BOUNDARY_WORDS
+    from ..ops import genewise
 
-    f32 = np.float32
-    NEG = f32(-1e30)
-    sub = np.asarray(submat, np.float32)
-    K = sub.shape[0]
-    q = np.asarray(queries).astype(np.int64)
-    a = np.asarray(target_aa).astype(np.int64)
-    B, Lq = q.shape
-    T = a.shape[1]
-    ql = np.clip(np.asarray(q_lens, np.int64), 0, Lq)
-    tl = np.clip(np.asarray(t_lens, np.int64), 0, T)
-    go, ge, fs, neg_stop = f32(gap_open), f32(gap_extend), f32(fs_penalty), -f32(stop_penalty)
-    qc, ac = np.clip(q, 0, K - 1), np.clip(a, 0, K - 1)
-    stop = a == codon.STOP_CODE
-    bv, bj, bt = np.zeros(B, f32), np.zeros(B, np.int64), np.zeros(B, np.int64)
-    bf = np.zeros((B, 3), np.int64)                  # query start, target start, shifts
-    scratch = np.zeros((B, max(T, 1), _BOUNDARY_WORDS), np.int32)
-    rows = np.arange(B)
-    R = 8                                            # anti-diagonals kept
-    for s0 in range(0, int(ql.max()) if B else 0, KERNEL_STRIP):
-        n = min(KERNEL_STRIP, Lq - s0)
-        more = s0 + KERNEL_STRIP < ql
-        cols = np.arange(n)
-        j = s0 + cols
-        qj = qc[:, j].T                              # [n, B]
-        # [R, n + 1, B]: H and E of anti-diagonal d at [d % R]; index 0 is
-        # the column left of the strip, index c + 1 strip column c
-        Hv = np.full((R, n + 1, B), NEG, f32)
-        Ev = np.full((R, n + 1, B), NEG, f32)
-        Hf = np.zeros((R, n + 1, B, 3), np.int64)
-        Ef = np.zeros((R, n + 1, B, 3), np.int64)
-        Fv = np.full((n + 1, B), NEG, f32)           # F entering each column
-        Ff = np.zeros((n + 1, B, 3), np.int64)
-        zero = np.zeros((n, B), np.int64)
-        for d in range(int(tl.max()) + n - 1):
-            t = d - cols                             # [n]
-            act = (t[:, None] >= 0) & (t[:, None] < tl[None, :]) & (j[:, None] < ql[None, :])
-            if s0 > 0:
-                # lane 0 reads base d of the column left of the strip, which
-                # lies on anti-diagonal d - 1
-                lb = act[0]
-                w = scratch[:, min(d, T - 1)]
-                k = (d - 1) % R
-                Hv[k, 0] = np.where(lb, w[:, 0].view(f32), NEG)
-                Hf[k, 0] = np.where(lb[:, None], w[:, 1:4], 0)
-                Ev[k, 0] = np.where(lb, w[:, 4].view(f32), NEG)
-                Ef[k, 0] = np.where(lb[:, None], w[:, 5:8], 0)
-                Fv[0] = np.where(lb, w[:, 8].view(f32), NEG)
-                Ff[0] = np.where(lb[:, None], w[:, 9:12], 0)
-            tc = np.clip(t, 0, T - 1)
-            s = np.where(stop[:, tc].T, neg_stop, sub[qj, ac[:, tc].T])      # [n, B]
-            A = np.zeros((n, B), f32)
-            P = np.stack([np.broadcast_to(j[:, None], (n, B)),
-                          np.broadcast_to(np.maximum(t - 2, 0)[:, None], (n, B)), zero], -1)
-            for dt in (3, 1, 2, 4, 5):
-                k = (d - dt - 1) % R                 # H[t - dt, c - 1]
-                hv, hf = Hv[k, :n], Hf[k, :n]
-                cand = np.where(hv <= 0, NEG, hv) - (f32(0) if dt == 3 else fs)
-                take = cand > A
-                A = np.where(take, cand, A)
-                P = np.where(take[..., None], hf + (0, 0, int(dt != 3)), P)
-            k = (d - 4) % R                          # E[t - 3, c - 1]
-            take = Ev[k, :n] > A
-            A = np.where(take, Ev[k, :n], A)
-            P = np.where(take[..., None], Ef[k, :n], P)
-            k = (d - 3) % R                          # H and E[t - 3, c]
-            e_open = Hv[k, 1:] - go
-            e_ext = Ev[k, 1:] - ge
-            take_open = e_open >= e_ext
-            E = np.where(take_open, e_open, e_ext)
-            Epf = np.where(take_open[..., None], Hf[k, 1:], Ef[k, 1:])
-            Hc = s + A
-            f, ff = Fv[:n].copy(), Ff[:n].copy()
-            use_f = f > Hc
-            H = np.maximum(np.where(use_f, f, Hc), NEG)
-            Hpf = np.where(use_f[..., None], ff, P)
-            f_ext, f_open = f - ge, Hc - go
-            keep = f_ext >= f_open
-            Fv[1:] = np.where(keep, f_ext, f_open)
-            Ff[1:] = np.where(keep[..., None], ff, P)
-            # cells outside the row's lengths: NEG, zero fields
-            k = d % R
-            Hv[k, 1:] = np.where(act, H, NEG)
-            Hf[k, 1:] = np.where(act[..., None], Hpf, 0)
-            Ev[k, 1:] = np.where(act, E, NEG)
-            Ef[k, 1:] = np.where(act[..., None], Epf, 0)
-            # the anti-diagonal's best cell of each row (the largest H, then
-            # the first column) replaces the running best as in the kernel
-            hv = np.where(act, H, -np.inf)
-            c = np.argmax(hv, axis=0)
-            v = hv[c, rows]
-            better = act.any(0) & ((v > bv) | ((v == bv) & (j[c] < bj)))
-            bv = np.where(better, v, bv).astype(f32)
-            bj = np.where(better, j[c], bj)
-            bt = np.where(better, t[c], bt)
-            bf = np.where(better[:, None], Hpf[c, rows], bf)
-            lb = more & act[n - 1]
-            if lb.any():
-                # the last lane writes base t of the strip's last column
-                w = scratch[:, t[n - 1]]
-                w[lb, 0] = H[n - 1, lb].view(np.int32)
-                w[lb, 1:4] = Hpf[n - 1, lb]
-                w[lb, 4] = E[n - 1, lb].view(np.int32)
-                w[lb, 5:8] = Epf[n - 1, lb]
-                w[lb, 8] = Fv[n, lb].view(np.int32)
-                w[lb, 9:12] = Ff[n, lb]
-    i32 = np.int32
-    return (bv, bf[:, 0].astype(i32), bj.astype(i32), bf[:, 1].astype(i32), bt.astype(i32),
-            bf[:, 2].astype(i32))
+    if layout is None:
+        layout = genewise.genewise_config(np.shape(queries)[1], np.shape(target_aa)[1])
+    return _pipeline_model(
+        _WiseModel(layout.cols, layout.rows, layout.wide, gap_open, gap_extend, fs_penalty),
+        queries,
+        q_lens, target_aa, t_lens, submat, layout, codon.STOP_CODE, stop_penalty)
 
 
-def check_genewise(device) -> int:
+def genewise_layouts(device, case: GenewiseCase) -> list:
+    """The kernel layouts the check forces on a case (``pipeline_layouts``
+    at the chooser's layouts for its widths; none on the CPU)."""
+    import torch
+
+    from ..ops import genewise
+
+    if torch.device(device).type != "cuda":
+        return [None]
+    Lq, T = case.queries.shape[1], case.target_aa.shape[1]
+    return pipeline_layouts(genewise.genewise_configs(Lq, T), genewise.genewise_config(Lq, T),
+                            wrap=Lq < GENEWISE_LONG_LQ)
+
+
+def check_genewise(device, card_size: bool = True) -> Tuple[int, int]:
     """Every case of :func:`genewise_cases` through ``ops.genewise.
-    genewise_align`` on ``device`` (a card: the kernel), held against
-    ``genewise_align_plain`` on the same tensors and, on a card, against
-    the CPU's: all six fields bit for bit (the score as float32 bits).
-    Raises AssertionError on the first difference; returns the number of
-    cases."""
+    genewise_align`` on ``device`` (a card: the kernel, at every layout of
+    :func:`genewise_layouts`), held against ``genewise_align_plain`` on the
+    same tensors and, on a card, against the CPU's: all six fields bit for
+    bit (the score as float32 bits). Raises AssertionError on the first
+    difference; returns the numbers of cases and of calls."""
     import torch
 
     from ..ops import genewise
@@ -1041,18 +1460,20 @@ def check_genewise(device) -> int:
     def bits(x):
         return x.contiguous().view(torch.int32).cpu()
 
-    n_cases = 0
-    for case in genewise_cases():
+    n_cases = n_calls = 0
+    for case in genewise_cases(card_size=card_size):
         args = genewise_tensors(case, device)
-        got = genewise.genewise_align(*args, *case.penalties)
         wants = [("its plain version", genewise.genewise_align_plain(*args, *case.penalties))]
         if torch.device(device).type != "cpu":
             cpu = genewise_tensors(case, "cpu")
             wants.append(("the CPU", genewise.genewise_align_plain(*cpu, *case.penalties)))
-        for what, want in wants:
-            for field, g, w in zip(genewise.WiseHits._fields, got, want):
-                if not torch.equal(bits(g), bits(w)):
-                    raise AssertionError(f"genewise_align {field} differs from {what}: "
-                                         f"{case.name}")
+        for cfg in genewise_layouts(device, case):
+            got = genewise.genewise_align(*args, *case.penalties, _config=cfg)
+            n_calls += 1
+            for what, want in wants:
+                for field, g, w in zip(genewise.WiseHits._fields, got, want):
+                    if not torch.equal(bits(g), bits(w)):
+                        raise AssertionError(f"genewise_align {field} differs from {what}: "
+                                             f"{case.name}, layout {cfg}")
         n_cases += 1
-    return n_cases
+    return n_cases, n_calls

@@ -1,10 +1,11 @@
 """Check and time the port's kernels (K1 read filter, K2 and K3 merges, K4
-sort, C1 banded CYK, V1 and V2 Viterbi passes) on one GPU.
+sort, C1 banded CYK, V1 and V2 Viterbi passes, S1 Smith-Waterman, G1
+genewise) on one GPU.
 
     python3 scripts/torch_kernel_bench.py [--repo DIR] [--check] [--time]
-                                          [--kernels K1,K2,K3,K4,C1,V1,V2]
+                                          [--kernels K1,K2,K3,K4,C1,V1,V2,S1,G1]
                                           [--shapes FILE] [--viterbi-calls FILE]
-                                          [--label NAME] [--out FILE]
+                                          [--layouts] [--label NAME] [--out FILE]
 
 ``--repo DIR`` imports ``mitoflex_tpu_torch`` from another checkout (for
 example the parent commit unpacked by ``git archive``), so that two versions
@@ -48,8 +49,20 @@ given the file, every golden call replayed and summed per pass (each call's
 median of VITERBI_GOLDEN_REPEATS). Each row: median ms of VITERBI_REPEATS
 calls, ns a step (ms over the longest row's steps), the operations bound at
 67 TFLOP/s and, where the checkout has ``viterbi_config``, the layout; with
-``--check``, ``kernel_cases.check_viterbi`` on the card first. The card's
-name and power limit are printed first.
+``--check``, ``kernel_cases.check_viterbi`` on the card first. S1
+(``sw_align``) and G1 (``genewise_align``), when ``--kernels`` names them,
+are timed through their public wrappers only (so ``--repo`` can run an
+earlier tree's kernels) on seeded inputs (``dp_shapes``): S1's golden call
+(48 pairs x Lq 100 x Lt 5163), the blastn size (2 x 16,500 x 300) and a
+real-size tblastn call (64 x 600 x 5300, planted homologs); G1's golden
+call (12 x 100 x 359) and real size (2 x 600 x 1950). Each row: median, min
+and max of DP_REPEATS calls, ns a step over the call's longest chain (its
+stage steps where the checkout has a layout chooser, else the first
+design's strips one after another), the operations bound at 67 TFLOP/s,
+and the checkout's layout; ``--layouts`` times each layout the chooser
+weighs at the shape too; with ``--check``, ``kernel_cases.check_sw`` and
+``check_genewise`` on the card first and every timed call bit-equal to
+the plain version. The card's name and power limit are printed first.
 """
 
 from __future__ import annotations
@@ -386,6 +399,151 @@ def time_viterbi(dev, label: str, which, calls_path=None, out_path=None) -> None
              cells=cells_all, bound_ms=bound_all)
 
 
+DP_REPEATS = 7
+DP_SEED = 2032
+# operations a cell, as chip_smoke.py's SW_OPS_PER_CELL and
+# GENEWISE_OPS_PER_CELL
+DP_OPS = {"S1": 61, "G1": 81}
+LANES = 32
+
+
+def _planted_pairs(rng, B: int, Lq: int, Lt: int, K: int, fill: int):
+    """[B, Lq] queries and [B, Lt] targets of random codes below K - 1; every
+    target but each fourth holds a copy of its query with a substitution
+    every 10 residues and 3 residues inserted in the middle."""
+    q = rng.integers(0, K - 1, (B, Lq)).astype(np.int8)
+    t = rng.integers(0, K - 1, (B, Lt)).astype(np.int8)
+    for i in range(B):
+        if i % 4 == 3:
+            continue
+        h = Lq // 2
+        core = np.concatenate([q[i, :h], rng.integers(0, K - 1, 3), q[i, h:]]).astype(np.int8)
+        core[::10] = rng.integers(0, K - 1, len(core[::10]))
+        core = core[:Lt]
+        at = int(rng.integers(0, Lt - len(core) + 1))
+        t[i, at: at + len(core)] = core
+    return q, np.full(B, Lq, np.int32), t, np.full(B, Lt, np.int32)
+
+
+def _genes(rng, B: int, Lq: int, T: int, kinds):
+    """[B, Lq] proteins and [B, T] translated windows (table 5): each window
+    a random ORF of Lq codons, edited by its kind (clean, plus1 or minus1:
+    a base gained or lost in the middle), in random flanks."""
+    from mitoflex_tpu_torch.io import encoding
+    from mitoflex_tpu_torch.models import codon
+    from mitoflex_tpu_torch.ops import genewise
+
+    gc = codon.get_code(5)
+    sense = [c for c, a in sorted(gc.forward.items()) if a != "*"]
+    qa = np.full((B, Lq), codon.X_CODE, np.int8)
+    ta = np.full((B, T), 4, np.int8)
+    for i in range(B):
+        nt = "".join(sense[int(k)] for k in rng.integers(0, len(sense), Lq))
+        qa[i] = codon.aa_encode(gc.translate_str(nt))
+        mid = 3 * (Lq // 2)
+        kind = kinds[i % len(kinds)]
+        if kind == "plus1":
+            nt = nt[:mid] + "A" + nt[mid:]
+        elif kind == "minus1":
+            nt = nt[:mid] + nt[mid + 1:]
+        room = T - len(nt)
+        left = int(rng.integers(0, room + 1))
+        w = "".join("ACGT"[int(k)] for k in rng.integers(0, 4, T))
+        w = w[:left] + nt + w[left + len(nt):]
+        ta[i] = encoding.encode(w[:T])
+    return qa, np.full(B, Lq, np.int32), genewise.translate_windows(ta, 5), \
+        np.full(B, T, np.int32)
+
+
+def dp_shapes(which):
+    """(kernel, what, numpy arrays, gap costs) of the S1 and G1 shapes: the
+    golden run's calls (S1 48 pairs x Lq 100 x Lt 5163, BLOSUM62 at 12/1;
+    G1 12 hits x 100 aa x 359 nt), the blastn size (2 x a 16,500-base contig
+    against 300-base windows, DNA at 7/2), a real-size tblastn call (64
+    pairs x Lq 600 x Lt 5300) and G1's real size (2 x 600 aa x 1950 nt)."""
+    from mitoflex_tpu_torch.models import codon
+    from mitoflex_tpu_torch.ops import sw
+
+    rng = np.random.default_rng(DP_SEED)
+    aa = codon.blosum62().astype(np.float32)
+    nt = sw.nucleotide_matrix().astype(np.float32)
+    if "S1" in which:
+        yield "S1", "golden call", _planted_pairs(rng, 48, 100, 5163, codon.NUM_AA,
+                                                  codon.X_CODE), aa, (12.0, 1.0)
+        contig = rng.integers(0, 4, 16500).astype(np.int8)
+        t = np.stack([contig[9000:9300].copy(), rng.integers(0, 4, 300).astype(np.int8)])
+        t[0, 100:104] = (t[0, 100:104] + 1) % 4
+        yield "S1", "blastn size", (np.stack([contig, contig]), np.full(2, 16500, np.int32),
+                                    t, np.array([300, 297], np.int32)), nt, (7.0, 2.0)
+        yield "S1", "real-size tblastn", _planted_pairs(rng, 64, 600, 5300, codon.NUM_AA,
+                                                        codon.X_CODE), aa, (12.0, 1.0)
+    if "G1" in which:
+        pen = (13.0, 3.0, 15.0, 20.0)
+        yield "G1", "golden call", _genes(rng, 12, 100, 359, ("clean", "plus1", "minus1")), \
+            codon.blosum62().astype(np.float32), pen
+        yield "G1", "real size", _genes(rng, 2, 600, 1950, ("plus1", "minus1")), \
+            codon.blosum62().astype(np.float32), pen
+
+
+def _dp_layouts(kernel, Lq, Lt, every: bool) -> list:
+    """The checkout's layout for the shape (None where it has no chooser)
+    and, with ``every``, each layout its chooser weighs at these widths."""
+    from mitoflex_tpu_torch.ops import genewise, sw
+
+    mod, name = (sw, "sw") if kernel == "S1" else (genewise, "genewise")
+    if not hasattr(mod, f"{name}_config"):
+        return [None]
+    own = getattr(mod, f"{name}_config")(Lq, Lt)
+    if not every:
+        return [own]
+    return [own] + [c for c in getattr(mod, f"{name}_configs")(Lq, Lt) if c != own]
+
+
+def _chain_steps(layout, q_lens, t_lens) -> int:
+    """Steps of the call's longest chain: with a layout, the longest pair's
+    (``PipelineConfig.steps``); without (the first design), one warp's strips of
+    128 columns one after another."""
+    return max([1] + [layout.steps(ql, tl) if layout is not None
+                      else -(-ql // 128) * (tl + LANES - 1)
+                      for ql, tl in zip(q_lens.tolist(), t_lens.tolist())])
+
+
+def time_dp(dev, label: str, which, every_layout: bool, check: bool, out_path=None) -> None:
+    """S1 and G1 at ``dp_shapes`` through the public wrappers: the median,
+    min and max of DP_REPEATS calls at the checkout's layout (and, with
+    ``every_layout``, at each layout its chooser weighs), ns a step over
+    the longest chain, the operations bound at 67 TFLOP/s; with ``check``,
+    each call's fields bit-equal to the plain version's first."""
+    from mitoflex_tpu_torch.ops import genewise, sw
+
+    emit = _emitter(label, out_path)
+    for kernel, what, arrays, sub, pen in dp_shapes(which):
+        q, ql, t, tl = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrays)
+        fn, plain = (sw.sw_align, sw.sw_align_plain) if kernel == "S1" \
+            else (genewise.genewise_align, genewise.genewise_align_plain)
+        subt = torch.from_numpy(sub).to(dev)
+        want = plain(q, ql, t, tl, subt, *pen) if check else None
+        B, Lq = q.shape
+        Lt = t.shape[1]
+        cells = int((ql.to(torch.int64) * tl.to(torch.int64)).sum())
+        for layout in _dp_layouts(kernel, Lq, Lt, every_layout):
+            kw = {} if layout is None else {"_config": layout}
+            if want is not None:
+                got = fn(q, ql, t, tl, subt, *pen, **kw)
+                for g, w in zip(got, want):
+                    if not torch.equal(g.contiguous().view(torch.int32),
+                                       w.contiguous().view(torch.int32)):
+                        raise AssertionError(f"{kernel} {what} differs from the plain version "
+                                             f"at layout {layout}")
+            times = cuda_times(lambda: fn(q, ql, t, tl, subt, *pen, **kw), DP_REPEATS)
+            ms = float(np.median(times))
+            emit(kernel=kernel, what=what, shape=[B, Lq, Lt], ms=ms, min_ms=min(times),
+                 max_ms=max(times), ns_step=ms * 1e6 / _chain_steps(layout, ql.cpu(), tl.cpu()),
+                 cells=cells, bound_ms=cells * DP_OPS[kernel] / F32_OPS_PER_MS,
+                 layout=None if layout is None else list(layout),
+                 bit_equal=want is not None)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
@@ -393,7 +551,10 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--kernels", default="K1,K2,K3,K4",
-                    help="comma-separated subset of K1,K2,K3,K4,C1,V1,V2 to check and time")
+                    help="comma-separated subset of K1,K2,K3,K4,C1,V1,V2,S1,G1 to check "
+                         "and time")
+    ap.add_argument("--layouts", action="store_true",
+                    help="time S1 and G1 at every layout their choosers weigh too")
     ap.add_argument("--shapes", default=None)
     ap.add_argument("--viterbi-calls", default=None,
                     help="the golden run's Viterbi calls (chip_smoke.py phase 13's "
@@ -425,6 +586,16 @@ def main() -> int:
 
         print(f"check: V1 and V2 bit-equal to the plain versions on the card: "
               f"{kernel_cases.check_viterbi(dev)} (case, band) pairs", flush=True)
+    if args.check and "S1" in which:
+        from mitoflex_tpu_torch.testing import kernel_cases
+
+        print(f"check: S1 bit-equal to its plain version on the card: "
+              f"{kernel_cases.check_sw(dev)} (cases, calls)", flush=True)
+    if args.check and "G1" in which:
+        from mitoflex_tpu_torch.testing import kernel_cases
+
+        print(f"check: G1 bit-equal to its plain version on the card and the CPU: "
+              f"{kernel_cases.check_genewise(dev)} (cases, calls)", flush=True)
     if args.check and set(which) & {"K1", "K2", "K3", "K4"}:
         from mitoflex_tpu_torch.testing import kernel_cases
 
@@ -448,6 +619,8 @@ def main() -> int:
             time_cyk(dev, args.label, args.out)
         if set(which) & {"V1", "V2"}:
             time_viterbi(dev, args.label, which, args.viterbi_calls, args.out)
+        if set(which) & {"S1", "G1"}:
+            time_dp(dev, args.label, which, args.layouts, args.check, args.out)
     return 0
 
 

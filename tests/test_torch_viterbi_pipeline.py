@@ -363,7 +363,6 @@ def test_every_pick_fits_the_card(window, scan):
             assert cfg.cols in port_phmm.KERNEL_COLS, what
             assert cfg.threads <= min(1024, port_phmm.kernel_max_threads(cfg.cols)), what
             assert 1 <= cfg.cluster <= 8 and cfg.warps >= 1 and cfg.rows >= 1, what
-            assert cfg.depth >= 2, what
             assert port_phmm.kernel_smem_bytes(cfg, window, scan) <= 232448, what
             assert cfg.stage_width * cfg.warps * cfg.cluster >= Lp, what
             assert cfg.stage_width >= window, what
@@ -388,11 +387,11 @@ def test_shapes_the_kernel_cannot_serve_raise():
         with pytest.raises(ValueError):
             port_phmm.viterbi_config(*bad, SMS)
     with pytest.raises(ValueError, match="threads a block"):
-        port_phmm.check_config(port_phmm.ViterbiConfig(4, 8, 2, 1, 4), 2048, 16, True)
+        port_phmm.check_config(port_phmm.ViterbiConfig(4, 8, 2, 1), 2048, 16, True)
     with pytest.raises(ValueError, match="window 64 for a stage of 32"):
-        port_phmm.check_config(port_phmm.ViterbiConfig(1, 1, 1, 1, 4), 32, 64, True)
+        port_phmm.check_config(port_phmm.ViterbiConfig(1, 1, 1, 1), 32, 64, True)
     with pytest.raises(ValueError, match="columns for Lp"):
-        port_phmm.check_config(port_phmm.ViterbiConfig(1, 2, 1, 1, 4), 128, 16, True)
+        port_phmm.check_config(port_phmm.ViterbiConfig(1, 2, 1, 1), 128, 16, True)
 
 
 def test_chooser_mirrors_the_source():
@@ -405,7 +404,8 @@ def test_chooser_mirrors_the_source():
     assert "return scan ? 8 + 2 * W : 3 + W;" in src
     assert f"kMaxT = {port_phmm.KERNEL_MAX_T + 1};" in src
     assert re.search(r"kMaxSmem = 232448;", src) and re.search(r"kMaxCluster = 8;", src)
-    assert "P * R * ((int64_t)depth * slot_words(W, scan) * 8 + kCtlBytes)" in src
+    assert "P * R * ((int64_t)kDepth * slot_words(W, scan) * 8 + kCtlBytes)" in src
+    assert f"kDepth = {port_phmm.KERNEL_DEPTH};" in src and port_phmm.KERNEL_DEPTH >= 2
     assert "kCtlBytes = 32;" in src
     for K in port_phmm.KERNEL_COLS:
         assert f"viterbi_kernel<{K}, SCAN, 16>" in src and f"viterbi_kernel<{K}, SCAN, 0>" in src
@@ -420,11 +420,11 @@ def test_a_forced_layout_is_checked_before_any_launch():
     name, arrays, mlens, seqs, lens = CASES[3]
     prof = kernel_cases._profile(arrays, 0, "cpu")
     with pytest.raises(ValueError, match="columns for Lp"):
-        port_phmm._layout(torch.device("cpu"), 128, 1, 16, True, (1, 1, 1, 1, 4))
-    cfg = port_phmm._layout(torch.device("cpu"), 128, 1, 16, True, (4, 1, 1, 1, 4))
-    assert cfg == port_phmm.ViterbiConfig(4, 1, 1, 1, 4)
+        port_phmm._layout(torch.device("cpu"), 128, 1, 16, True, (1, 1, 1, 1))
+    cfg = port_phmm._layout(torch.device("cpu"), 128, 1, 16, True, (4, 1, 1, 1))
+    assert cfg == port_phmm.ViterbiConfig(4, 1, 1, 1)
     # on the CPU a forced layout changes nothing: the plain version runs
     s, l = torch.from_numpy(seqs), torch.from_numpy(lens)
-    got = port_phmm.viterbi_scan(prof, s, l, int(mlens[0]), _config=(4, 1, 1, 1, 4))
+    got = port_phmm.viterbi_scan(prof, s, l, int(mlens[0]), _config=(4, 1, 1, 1))
     for g, w in zip(got, port_phmm.viterbi_scan_plain(prof, s, l, int(mlens[0]))):
         assert torch.equal(g, w)
