@@ -11,7 +11,14 @@ subcommand of the JAX package's CLI runs (``filter``, ``assemble``,
 ``load_modules``) and prints the same one-line JSON.
 
 ``MITOFLEX_TORCH_PROFILE=<dir>`` records a ``torch.profiler`` trace of the
-command (CPU, plus CUDA on a card) to ``<dir>/trace.json``.
+command (CPU, plus CUDA on a card) to ``<dir>/trace.json``, with the port's
+tracer (utils/trace.py) on: the main thread's spans are ranges
+``mfx.port.<name>`` of the trace (``[k=<k>]`` in assemble), and the spans of
+the helper threads (the FASTQ prefetch producers, the k-mer merge gate's
+producer), which the profiler cannot see, are added to the file as complete
+events on the trace's clock, placed through the ``mfx.port.anchor`` range,
+under their own thread ids. Each span's counters (``d2h.*``, ``io.*``,
+``count.bases``, ``kmers.solid``, ``graph.rounds``, ...) are its ``args``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import List, Optional
 
 from . import __version__
 from .config import PipelineConfig, generate_config, load_config_file
+from .utils import trace
 from .utils.logger import logger
 
 _SECTION_FLAGS = {
@@ -310,6 +318,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             acts.append(tp.ProfilerActivity.CUDA)
         prof = tp.profile(activities=acts)
         prof.__enter__()
+        trace.reset()
+        trace.enable()
         logger.info(f"torch profiler tracing to {profile_dir}")
     try:
         if args.command == "filter":
@@ -361,8 +371,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
+            trace.disable()
             os.makedirs(profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+            path = os.path.join(profile_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            trace.add_to_chrome_trace(path, trace.export())
+            trace.reset()
             logger.info(f"torch profiler trace written to {profile_dir}")
         logger.finalize()
 

@@ -29,6 +29,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .utils import trace
+
 MASK32 = 0xFFFFFFFF
 
 
@@ -43,7 +45,7 @@ def to_device(x: np.ndarray, device) -> torch.Tensor:
 
 def u32_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 bit patterns (or int64 values in [0, 2**32)) -> numpy uint32."""
-    t = t.detach().cpu()
+    t = trace.read_back(t.detach())
     if t.dtype == torch.int32:
         return t.numpy().view(np.uint32)
     return (t.to(torch.int64) & MASK32).numpy().astype(np.uint32)
@@ -62,9 +64,10 @@ def u32_values(x: torch.Tensor) -> torch.Tensor:
 def host(x) -> np.ndarray:
     """A tensor or array as numpy (no copy for numpy or CPU tensors).
     ``np.asarray`` raises on a CUDA tensor, so every device -> host read of
-    the slice goes through here or :func:`u32_numpy`."""
+    the slice goes through here or :func:`u32_numpy`, and is charged to the
+    innermost span when traced (utils/trace.read_back)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return trace.read_back(x.detach()).numpy()
     return np.asarray(x)
 
 

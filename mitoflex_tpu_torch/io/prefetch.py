@@ -17,7 +17,9 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator, TypeVar
+from typing import Iterable, Iterator, Optional, TypeVar
+
+from ..utils import trace
 
 T = TypeVar("T")
 
@@ -25,25 +27,39 @@ _DONE = object()
 
 
 class PrefetchIterator(Iterator[T]):
-    def __init__(self, source: Iterable[T], depth: int = 2):
+    def __init__(self, source: Iterable[T], depth: int = 2, item: str = "io.parse",
+                 counters: str = "io", wait: Optional[str] = None):
         self._q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
         self._stop = threading.Event()
+        self._item = item
+        self._wait = wait
+        self._wait_ns = f"{counters}.wait_ns"
+        self._batches = f"{counters}.batches"
+        self._put_blocked_ns = f"{counters}.put_blocked_ns"
+        self._opener = trace.current()
         self._thread = threading.Thread(
             target=self._produce, args=(iter(source),), daemon=True
         )
         self._thread.start()
 
     def _produce(self, it: Iterator[T]) -> None:
+        trace.adopt(self._opener)
         try:
-            for item in it:
-                while not self._stop.is_set():
-                    try:
-                        self._q.put(item, timeout=0.1)
+            with trace.span("prefetch"):
+                while True:
+                    with trace.span(self._item):
+                        item = next(it, _DONE)
+                    if item is _DONE:
                         break
-                    except queue.Full:
-                        continue
-                if self._stop.is_set():
-                    return
+                    with trace.waited(self._put_blocked_ns):
+                        while not self._stop.is_set():
+                            try:
+                                self._q.put(item, timeout=0.1)
+                                break
+                            except queue.Full:
+                                continue
+                    if self._stop.is_set():
+                        return
             self._q.put(_DONE)
         except BaseException as e:  # propagate to the consumer
             self._q.put(e)
@@ -54,13 +70,16 @@ class PrefetchIterator(Iterator[T]):
     def __next__(self) -> T:
         if self._stop.is_set():
             raise StopIteration
-        item = self._q.get()
+        with trace.span(self._wait) if self._wait else trace.NULL:
+            with trace.waited(self._wait_ns):
+                item = self._q.get()
         if item is _DONE:
             self._stop.set()
             raise StopIteration
         if isinstance(item, BaseException):
             self._stop.set()
             raise item
+        trace.count(self._batches)
         return item
 
     def close(self) -> None:
@@ -81,6 +100,14 @@ class PrefetchIterator(Iterator[T]):
         return False
 
 
-def prefetch(source: Iterable[T], depth: int = 2) -> PrefetchIterator[T]:
-    """Wrap an iterator with a depth-bounded background producer thread."""
-    return PrefetchIterator(source, depth)
+def prefetch(source: Iterable[T], depth: int = 2, item: str = "io.parse",
+             counters: str = "io", wait: Optional[str] = None) -> PrefetchIterator[T]:
+    """Wrap an iterator with a depth-bounded background producer thread.
+
+    Traced (utils/trace.py): the producer thread runs in a span
+    ``prefetch`` whose parent is the span that called this, one span
+    ``item`` a pull from ``source``, and charges ``<counters>.put_blocked_ns``
+    (the queue was full: the consumer set the pace); the consumer charges
+    ``<counters>.wait_ns`` (blocked on the queue) and ``<counters>.batches``
+    to its innermost span, inside a span ``wait`` where one is named."""
+    return PrefetchIterator(source, depth, item, counters, wait)

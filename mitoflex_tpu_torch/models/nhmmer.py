@@ -26,6 +26,7 @@ import pandas as pd
 from ..io import encoding
 from ..io.fasta import FastaRecord
 from ..models.hmm import ProfileHMM
+from ..utils import trace
 from ..utils.logger import logger
 
 from ..convert import host, to_device
@@ -126,10 +127,11 @@ def nhmmer_search(
         overlap = min(Lmax, win // 2)
 
         windows: List[_Window] = []
-        for ci, c in enumerate(codes):
-            for strand, arr in ((1, codes[ci]), (-1, rc_codes[ci])):
-                for off, wl in _windows_for(len(arr), win, overlap):
-                    windows.append(_Window(ci, strand, off, wl))
+        with trace.span("nhmmer.window"):
+            for ci, c in enumerate(codes):
+                for strand, arr in ((1, codes[ci]), (-1, rc_codes[ci])):
+                    for off, wl in _windows_for(len(arr), win, overlap):
+                        windows.append(_Window(ci, strand, off, wl))
 
         stack = phmm_ops.stack_profiles([staged[i][1] for i in idxs])
         model_lens = [staged[i][0].length for i in idxs]
@@ -137,14 +139,16 @@ def nhmmer_search(
         for b0 in range(0, len(windows), batch_windows):
             chunk = windows[b0 : b0 + batch_windows]
             B = len(chunk)
-            width = max(max(w.length for w in chunk), 1)
-            seqs = np.full((B, width), encoding.N, dtype=np.int8)
-            lens = np.zeros(B, np.int32)
-            for i, w in enumerate(chunk):
-                arr = codes[w.contig_idx] if w.strand == 1 else rc_codes[w.contig_idx]
-                seqs[i, : w.length] = arr[w.offset : w.offset + w.length]
-                lens[i] = w.length
-            pre_all = _scores_multi(stack, model_lens, seqs, lens, dev, mesh)  # [M, B]
+            with trace.span("nhmmer.window"):
+                width = max(max(w.length for w in chunk), 1)
+                seqs = np.full((B, width), encoding.N, dtype=np.int8)
+                lens = np.zeros(B, np.int32)
+                for i, w in enumerate(chunk):
+                    arr = codes[w.contig_idx] if w.strand == 1 else rc_codes[w.contig_idx]
+                    seqs[i, : w.length] = arr[w.offset : w.offset + w.length]
+                    lens[i] = w.length
+            with trace.span("nhmmer.v1"):
+                pre_all = _scores_multi(stack, model_lens, seqs, lens, dev, mesh)  # [M, B]
             for mi, i_model in enumerate(idxs):
                 hmm, prof = staged[i_model]
                 L = hmm.length
@@ -170,7 +174,8 @@ def nhmmer_search(
                 for _round in range(4):
                     if not active:
                         break
-                    hits = _scan(prof, seqs2, lens2, L, dev, mesh)
+                    with trace.span("nhmmer.v2"):
+                        hits = _scan(prof, seqs2, lens2, L, dev, mesh)
                     sf, st = hits.seq_from, hits.seq_to
                     score = hits.score + phmm_ops.length_correction_bits(
                         lens2, st - sf + 1
@@ -213,6 +218,14 @@ def nhmmer_search(
                             lens2[j] = 0
                     active = next_active
 
+    with trace.span("nhmmer.frame"):
+        frame = _hit_frame(rows)
+    logger.debug(f"nhmmer_search: {len(frame)} hits over {len(contigs)} contigs")
+    return frame
+
+
+def _hit_frame(rows: List[dict]) -> pd.DataFrame:
+    """The hits as a tblout frame, each alignment once."""
     frame = pd.DataFrame(rows, columns=TBLOUT_COLUMNS)
     if frame.empty:
         return frame
@@ -234,6 +247,4 @@ def nhmmer_search(
             continue
         spans.setdefault(key, []).append((lo, hi))
         kept.append(idx)
-    frame = frame.loc[kept].reset_index(drop=True)
-    logger.debug(f"nhmmer_search: {len(frame)} hits over {len(contigs)} contigs")
-    return frame
+    return frame.loc[kept].reset_index(drop=True)

@@ -8,7 +8,7 @@ the card, see device.resolve_device); with a ``mesh`` (parallel/mesh.py)
 the translated search, genewise and the profile-HMM rescue shard over it.
 ``AnnotateResult.walls`` holds
 the seconds spent in the translated search, genewise, the tRNA search and
-the rRNA search.
+the rRNA search, each timed by its span (utils/trace.py).
 
 1. circular-overlap trim of a single scaffold (fix_circular, :261-273);
 2. translated search of the clade protein DB vs the genome (device SW)
@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -51,6 +50,7 @@ from ..models.proteindb import ProteinRecord, parse_protein_id
 from ..ops import genewise as genewise_ops
 from ..ops.overlap import check_circular
 from ..parallel import mesh as mesh_mod
+from ..utils import trace
 from ..utils.helper import timed
 from ..utils.logger import logger
 
@@ -252,9 +252,8 @@ def annotate(
 
     # the reference's annotate entry passes score=5 into blast_to_csv
     # (annotation.py:56-58,84), laxer than findmitoscaf's default of 25
-    t0 = time.perf_counter()
-    frame = blast_models.tblastn(db_records, records, table_id, device=dev, mesh=mesh)
-    walls["tblastn"] += time.perf_counter() - t0
+    with trace.span("annotate.tblastn", into=(walls, "tblastn")):
+        frame = blast_models.tblastn(db_records, records, table_id, device=dev, mesh=mesh)
     frame = blast_models.blast_filter(frame, cfg.min_identity, 5.0, cfg.qcover_ratio)
     if frame.empty:
         raise RuntimeError(
@@ -267,16 +266,14 @@ def annotate(
         if flipped:
             logger.info("annotate: genome reversed; re-running the translated search")
             genome = {r.id: r for r in records}
-            t0 = time.perf_counter()
-            frame = blast_models.tblastn(db_records, records, table_id, device=dev,
-                                         mesh=mesh)
-            walls["tblastn"] += time.perf_counter() - t0
+            with trace.span("annotate.tblastn", into=(walls, "tblastn")):
+                frame = blast_models.tblastn(db_records, records, table_id, device=dev,
+                                             mesh=mesh)
             frame = blast_models.blast_filter(frame, cfg.min_identity, 5.0, cfg.qcover_ratio)
             washed = blast_models.wash_blast_results(frame, cfg.overlap_ratio)
 
-    t0 = time.perf_counter()
-    wise_frame = _genewise_refine(washed, genome, db, table_id, device=dev, mesh=mesh)
-    walls["genewise"] = time.perf_counter() - t0
+    with trace.span("annotate.genewise", into=(walls, "genewise")):
+        wise_frame = _genewise_refine(washed, genome, db, table_id, device=dev, mesh=mesh)
     wise_frame = blast_models.wash_blast_results(wise_frame, cfg.overlap_ratio, mut_plus=False)
 
     # species vote (annotation.py:111-131)
@@ -307,9 +304,10 @@ def annotate(
         from ..models import nhmmer
 
         hmms = [m for m in profiles.cds_hmms(clade) if m.name in cds_notfound]
-        hf = nhmmer.nhmmer_search(records, hmms, device=dev, mesh=mesh,
-                                  e_threshold=cfg.hmmer_e,
-                                  score_threshold=cfg.hmmer_score)
+        with trace.span("annotate.rescue"):
+            hf = nhmmer.nhmmer_search(records, hmms, device=dev, mesh=mesh,
+                                      e_threshold=cfg.hmmer_e,
+                                      score_threshold=cfg.hmmer_score)
         hmmer_frame = hf if not hf.empty else None
     elif cds_notfound:
         logger.warn(f"annotate: expected PCGs {cds_notfound} not found")
@@ -319,13 +317,12 @@ def annotate(
         trna_models = profiles.trna_cms()
     except FileNotFoundError:
         trna_models = {}
-    t0 = time.perf_counter()
-    query_dict, missing_trna = (
-        cmsearch.trna_search(records, trna_models, table_id, 0.01,
-                             overlap_cutoff=40, device=dev)
-        if trna_models else ({}, [])
-    )
-    walls["trna"] = time.perf_counter() - t0
+    with trace.span("annotate.trna", into=(walls, "trna")):
+        query_dict, missing_trna = (
+            cmsearch.trna_search(records, trna_models, table_id, 0.01,
+                                 overlap_cutoff=40, device=dev)
+            if trna_models else ({}, [])
+        )
     logger.info(f"annotate: tRNAs found: {list(query_dict)}")
     if missing_trna:
         logger.warn(f"annotate: missing tRNAs: {missing_trna}")
@@ -334,10 +331,9 @@ def annotate(
         rrna_models = profiles.rrna_cms()
     except FileNotFoundError:
         rrna_models = {}
-    t0 = time.perf_counter()
-    r12, r16 = (cmsearch.rrna_search(records, rrna_models, 0.01, device=dev)
-                if rrna_models else (None, None))
-    walls["rrna"] = time.perf_counter() - t0
+    with trace.span("annotate.rrna", into=(walls, "rrna")):
+        r12, r16 = (cmsearch.rrna_search(records, rrna_models, 0.01, device=dev)
+                    if rrna_models else (None, None))
     if not r12:
         logger.warn("annotate: 12s rRNA not found")
     if not r16:

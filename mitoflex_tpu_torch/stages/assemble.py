@@ -28,6 +28,7 @@ from ..config import AssembleConfig
 from ..io import encoding, fasta, fastq
 from ..io.prefetch import prefetch
 from ..stages import graph_clean
+from ..utils import trace
 from ..utils.helper import timed
 from ..utils.logger import logger
 
@@ -364,11 +365,14 @@ def count_edges(
         counter = ShardedKmerCounter(mesh, kp1, spill_dir=spill_dir)
     else:
         counter = KmerCounter(kp1, canonical=True, spill_dir=spill_dir, device=device)
-    for seqs, lengths in read_source():
-        counter.add_chunk(seqs, lengths)
+    with trace.span("count.add"):
+        for seqs, lengths in read_source():
+            trace.count("count.bases", lengths)
+            counter.add_chunk(seqs, lengths)
     sk, sc = [], []
     # gate bucket b while a producer thread merges bucket b+1
-    with prefetch(counter.merged_iter(), 1) as gate_src:
+    with prefetch(counter.merged_iter(), 1, item="count.merge",
+                  counters="merge") as gate_src, trace.span("count.gate"):
         for keys, counts in gate_src:
             rc = kmer_ops.np_revcomp_keys(keys, kp1)
             palin = (keys == rc).all(axis=1)
@@ -377,21 +381,22 @@ def count_edges(
             if mask.any():
                 sk.append(keys[mask])
                 sc.append(counts[mask])
-    if sk:
-        rkeys, rcounts = kmer_ops.expand_canonical(
-            np.concatenate(sk), np.concatenate(sc), kp1
-        )
-    else:
-        rkeys = np.zeros((0, kmer_ops.num_words(kp1)), np.uint32)
-        rcounts = np.zeros(0, np.uint64)
+        if sk:
+            rkeys, rcounts = kmer_ops.expand_canonical(
+                np.concatenate(sk), np.concatenate(sc), kp1
+            )
+        else:
+            rkeys = np.zeros((0, kmer_ops.num_words(kp1)), np.uint32)
+            rcounts = np.zeros(0, np.uint64)
     if not extra_contigs:
         return rkeys, rcounts
-    ccounter = KmerCounter(kp1, device=device)
-    for seqs, lengths, weights in _contigs_to_chunks(extra_contigs, kp1):
-        ccounter.add_chunk(seqs, lengths, weights)
-    ckeys, ccounts = ccounter.solid(min_multi)
-    ckeys, ccounts = _symmetrize_max(ckeys, ccounts, kp1)
-    return kmer_ops.merge_sorted_counts(rkeys, rcounts, ckeys, ccounts, op="max")
+    with trace.span("count.overlay"):
+        ccounter = KmerCounter(kp1, device=device)
+        for seqs, lengths, weights in _contigs_to_chunks(extra_contigs, kp1):
+            ccounter.add_chunk(seqs, lengths, weights)
+        ckeys, ccounts = ccounter.solid(min_multi)
+        ckeys, ccounts = _symmetrize_max(ckeys, ccounts, kp1)
+        return kmer_ops.merge_sorted_counts(rkeys, rcounts, ckeys, ccounts, op="max")
 
 
 def _contigs_to_chunks(contigs: Sequence[Contig], kp1: int, row_len: int = 4096):
@@ -529,47 +534,55 @@ def assemble_k(
     careful_bubble mode and is re-injected at the next k."""
     bubbles: List[Contig] = []
     stale = False  # last pass's unitigs predate a keys/counts filter
-    for _ in range(max_clean_rounds):
-        gp = _run_graph_pass(keys, counts, k, device=device, mesh=mesh)
-        n = int(gp.n_nodes)
+    for rnd in range(max_clean_rounds):
+        trace.count("graph.rounds")
+        with trace.span("graph.pass", round=rnd):
+            gp = _run_graph_pass(keys, counts, k, device=device, mesh=mesh)
+            n = int(gp.n_nodes)
         if n == 0:
             raise EmptyGraph(f"graph emptied at k={k}")
-        uset = dbg_ops.unitig_set_from_pass(gp, k)
+        with trace.span("graph.unitigs", round=rnd):
+            uset = dbg_ops.unitig_set_from_pass(gp, k)
         stale = False
-        in_deg = host(gp.in_deg)[:n]
-        out_deg = host(gp.out_deg)[:n]
-        pre = host(gp.prefix_id)[: len(keys)].astype(np.int64)
-        suf = host(gp.suffix_id)[: len(keys)].astype(np.int64)
-        res = graph_clean.analyze_round(
-            uset, in_deg, out_deg, pre, suf, counts, k, clean
-        )
-        bubbles.extend(Contig(b.seq, b.depth, False) for b in res.bubbles)
-        if not res.any:
-            break
-        keep = ~(res.bad_nodes[np.clip(pre, 0, n - 1)]
-                 | res.bad_nodes[np.clip(suf, 0, n - 1)])
-        keep &= ~res.bad_edges
-        keep &= host(gp.edge_valid)[: len(keys)]
-        if keep.all():
-            break
-        keys, counts = keys[keep], counts[keep]
+        with trace.span("graph.clean", round=rnd):
+            in_deg = host(gp.in_deg)[:n]
+            out_deg = host(gp.out_deg)[:n]
+            pre = host(gp.prefix_id)[: len(keys)].astype(np.int64)
+            suf = host(gp.suffix_id)[: len(keys)].astype(np.int64)
+            res = graph_clean.analyze_round(
+                uset, in_deg, out_deg, pre, suf, counts, k, clean
+            )
+            bubbles.extend(Contig(b.seq, b.depth, False) for b in res.bubbles)
+            if not res.any:
+                break
+            keep = ~(res.bad_nodes[np.clip(pre, 0, n - 1)]
+                     | res.bad_nodes[np.clip(suf, 0, n - 1)])
+            keep &= ~res.bad_edges
+            keep &= host(gp.edge_valid)[: len(keys)]
+            if keep.all():
+                break
+            keys, counts = keys[keep], counts[keep]
         stale = True
         if len(keys) == 0:
             raise EmptyGraph(f"graph emptied at k={k}")
     if stale:
         # the fixpoint did not converge: regenerate unitigs from the
         # filtered edge set so killed branches cannot leak into contigs
-        gp = _run_graph_pass(keys, counts, k, device=device, mesh=mesh)
-        if int(gp.n_nodes) == 0:
+        with trace.span("graph.pass", round=max_clean_rounds):
+            gp = _run_graph_pass(keys, counts, k, device=device, mesh=mesh)
+            n = int(gp.n_nodes)
+        if n == 0:
             raise EmptyGraph(f"graph emptied at k={k}")
-        uset = dbg_ops.unitig_set_from_pass(gp, k)
+        with trace.span("graph.unitigs", round=max_clean_rounds):
+            uset = dbg_ops.unitig_set_from_pass(gp, k)
 
-    keep_u = dbg_ops.dedup_strand_mask(uset, k)
-    keep_u &= uset.lengths >= min(min_standalone, 2 * k)
-    contigs = [
-        Contig(uset.seq_str(j), float(uset.depth[j]), bool(uset.circular[j]))
-        for j in np.flatnonzero(keep_u)
-    ]
+    with trace.span("graph.unitigs"):
+        keep_u = dbg_ops.dedup_strand_mask(uset, k)
+        keep_u &= uset.lengths >= min(min_standalone, 2 * k)
+        contigs = [
+            Contig(uset.seq_str(j), float(uset.depth[j]), bool(uset.circular[j]))
+            for j in np.flatnonzero(keep_u)
+        ]
     # popped branches arrive once per strand — keep one representative each
     seen: dict = {}
     bubbles = [
@@ -733,11 +746,12 @@ def local_extend(
                 return iter(batches)
 
             collect = False
-        contigs, changed, cand = _extend_ends(
-            contigs, src, min_support, consensus_frac,
-            max_ext_per_round, collect_candidates=collect, device=device,
-            mesh=mesh,
-        )
+        with trace.span("local.round", round=rnd):
+            contigs, changed, cand = _extend_ends(
+                contigs, src, min_support, consensus_frac,
+                max_ext_per_round, collect_candidates=collect, device=device,
+                mesh=mesh,
+            )
         if cand is not None:
             cached = cand
         if not changed:
@@ -835,87 +849,96 @@ def assemble(
     i = 0
     while i < len(klist):
         k = klist[i]
-        source = read_source if i > 0 else tracked_source
-        if cfg.prefilter_reads and contigs:
-            # later iterations count only reads mapping to surviving contigs
-            recs = [fasta.FastaRecord(f"pf{j}", c.seq) for j, c in enumerate(contigs)]
-            index = mapper_ops.ContigIndex.build(recs, device)
+        with trace.span("assemble.k", k=k):
+            source = read_source if i > 0 else tracked_source
+            if cfg.prefilter_reads and contigs:
+                # later iterations count only reads mapping to surviving contigs
+                with trace.span("assemble.prefilter"):
+                    recs = [fasta.FastaRecord(f"pf{j}", c.seq) for j, c in enumerate(contigs)]
+                    index = mapper_ops.ContigIndex.build(recs, device)
 
-            def source():
-                for seqs, lengths in read_source():
-                    m = mapper_ops.map_batch(index, seqs, lengths, min_votes=2,
-                                             mesh=mesh)
-                    keep = m.contig >= 0
-                    if keep.any():
-                        yield seqs, np.where(keep, lengths, 0).astype(np.int32)
+                def source():
+                    for seqs, lengths in read_source():
+                        with trace.span("assemble.prefilter"):
+                            m = mapper_ops.map_batch(index, seqs, lengths, min_votes=2,
+                                                     mesh=mesh)
+                            keep = m.contig >= 0
+                        if keep.any():
+                            yield seqs, np.where(keep, lengths, 0).astype(np.int32)
 
-        try:
-            # mercy edges only at kmin, like megahit
-            mercy_active = (not cfg.no_mercy) and i == 0
-            keys, counts = count_edges(
-                source, k, cfg.min_multi, extra_contigs=contigs + bubbles,
-                spill_dir=spill_dir, device=device, mesh=mesh,
-            )
-            if mercy_active:
-                keys, counts = add_mercy_edges(source, keys, counts, k, device=device,
-                                               mesh=mesh)
-            logger.info(f"assemble: k={k}: {len(keys)} solid (k+1)-mers")
-            if i == 0 and seen_max[0]:
-                kept = [kk for kk in klist if kk < max(seen_max[0], klist[0] + 1)]
-                if len(kept) < len(klist):
-                    logger.info(f"assemble: k-list {klist} -> {kept} "
-                                f"(max read len {seen_max[0]})")
-                    klist = kept
-            clean = graph_clean.CleanParams(
-                prune_depth=cfg.prune_depth,
-                prune_level=cfg.prune_level,
-                bubble_level=cfg.bubble_level,
-                merge_len=cfg.merge_len,
-                merge_similar=cfg.merge_similar,
-                disconnect_ratio=cfg.disconnect_ratio,
-                low_local_ratio=cfg.low_local_ratio,
-                # reference: careful_bubble = kmer < kmax (wrapper:285)
-                careful_bubble=i < len(klist) - 1,
-            )
-            contigs, bubbles = assemble_k(
-                keys, counts, k, clean, min_standalone=cfg.min_length,
-                device=device, mesh=mesh,
-            )
-            if not cfg.disable_local and any(not c.circular for c in contigs):
-                linear = [c for c in contigs if not c.circular]
-                circular = [c for c in contigs if c.circular]
-                linear = local_extend(linear, source,
-                                      read_stride=cfg.local_read_stride,
-                                      device=device, mesh=mesh)
-                contigs = circular + linear
-        except EmptyGraph as e:
-            logger.warn(f"assemble: {e}; stopping multi-k loop at k={k}")
-            break
-        logger.info(
-            f"assemble: k={k}: {len(contigs)} contigs "
-            f"(max {max((len(c.seq) for c in contigs), default=0)} bp)"
-            + (f", {len(bubbles)} popped bubbles carried" if bubbles else "")
-        )
-        last_good = contigs
-        # min_length gates only the FINAL k (reference assemble.py:97-99)
-        final_k = i == len(klist) - 1
-        if not cfg.no_filter or final_k:
-            depth = dlist[i] if i < len(dlist) else 0
-            contigs = filter_contigs(
-                contigs, depth, cfg.min_length if final_k else 0,
-                cfg.max_length, cfg.filter_keep,
-            )
-            # bubbles ride the same gate, without the keep fallback
-            bubbles = filter_contigs(bubbles, depth, 0, cfg.max_length)
-            logger.info(f"assemble: k={k}: {len(contigs)} contigs after "
-                        f"depth>={depth} gate")
-            if not contigs:
-                logger.warn("assemble: depth gate removed everything; stopping")
-                contigs = []
+            try:
+                # mercy edges only at kmin, like megahit
+                mercy_active = (not cfg.no_mercy) and i == 0
+                with trace.span("assemble.count"):
+                    keys, counts = count_edges(
+                        source, k, cfg.min_multi, extra_contigs=contigs + bubbles,
+                        spill_dir=spill_dir, device=device, mesh=mesh,
+                    )
+                if mercy_active:
+                    with trace.span("assemble.mercy"):
+                        keys, counts = add_mercy_edges(source, keys, counts, k, device=device,
+                                                       mesh=mesh)
+                trace.count("kmers.solid", len(keys))
+                logger.info(f"assemble: k={k}: {len(keys)} solid (k+1)-mers")
+                if i == 0 and seen_max[0]:
+                    kept = [kk for kk in klist if kk < max(seen_max[0], klist[0] + 1)]
+                    if len(kept) < len(klist):
+                        logger.info(f"assemble: k-list {klist} -> {kept} "
+                                    f"(max read len {seen_max[0]})")
+                        klist = kept
+                clean = graph_clean.CleanParams(
+                    prune_depth=cfg.prune_depth,
+                    prune_level=cfg.prune_level,
+                    bubble_level=cfg.bubble_level,
+                    merge_len=cfg.merge_len,
+                    merge_similar=cfg.merge_similar,
+                    disconnect_ratio=cfg.disconnect_ratio,
+                    low_local_ratio=cfg.low_local_ratio,
+                    # reference: careful_bubble = kmer < kmax (wrapper:285)
+                    careful_bubble=i < len(klist) - 1,
+                )
+                with trace.span("assemble.graph"):
+                    contigs, bubbles = assemble_k(
+                        keys, counts, k, clean, min_standalone=cfg.min_length,
+                        device=device, mesh=mesh,
+                    )
+                with trace.span("assemble.local"):
+                    if not cfg.disable_local and any(not c.circular for c in contigs):
+                        linear = [c for c in contigs if not c.circular]
+                        circular = [c for c in contigs if c.circular]
+                        linear = local_extend(linear, source,
+                                              read_stride=cfg.local_read_stride,
+                                              device=device, mesh=mesh)
+                        contigs = circular + linear
+            except EmptyGraph as e:
+                logger.warn(f"assemble: {e}; stopping multi-k loop at k={k}")
                 break
-            if final_k:
-                last_good = contigs
-        i += 1
+            logger.info(
+                f"assemble: k={k}: {len(contigs)} contigs "
+                f"(max {max((len(c.seq) for c in contigs), default=0)} bp)"
+                + (f", {len(bubbles)} popped bubbles carried" if bubbles else "")
+            )
+            last_good = contigs
+            # min_length gates only the FINAL k (reference assemble.py:97-99)
+            final_k = i == len(klist) - 1
+            if not cfg.no_filter or final_k:
+                depth = dlist[i] if i < len(dlist) else 0
+                with trace.span("assemble.gate"):
+                    contigs = filter_contigs(
+                        contigs, depth, cfg.min_length if final_k else 0,
+                        cfg.max_length, cfg.filter_keep,
+                    )
+                    # bubbles ride the same gate, without the keep fallback
+                    bubbles = filter_contigs(bubbles, depth, 0, cfg.max_length)
+                logger.info(f"assemble: k={k}: {len(contigs)} contigs after "
+                            f"depth>={depth} gate")
+                if not contigs:
+                    logger.warn("assemble: depth gate removed everything; stopping")
+                    contigs = []
+                    break
+                if final_k:
+                    last_good = contigs
+            i += 1
 
     final = filter_contigs(last_good, 0, cfg.min_length, cfg.max_length)
     final_k = klist[min(i, len(klist) - 1)] if klist else 0

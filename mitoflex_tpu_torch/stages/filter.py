@@ -20,7 +20,8 @@ import numpy as np
 from ..config import FilterConfig
 from ..io import fastq
 from ..io.prefetch import prefetch
-from ..utils.helper import StageTimer, timed
+from ..utils import trace
+from ..utils.helper import timed
 from ..utils.logger import logger
 
 from ..convert import host, to_device, u32_numpy
@@ -95,7 +96,7 @@ def _apply_budget(keep: np.ndarray, lengths: np.ndarray, used: int, budget: int)
     return keep, (int(cum[-1]) if len(cum) else used), False
 
 
-@timed()
+@timed("filter")
 def filter_reads(
     cfg: FilterConfig,
     fastq1: str,
@@ -123,7 +124,6 @@ def filter_reads(
     budget = int(round(cfg.trimming * 1_000_000_000)) if cfg.trimming else 0
     if n_hosts > 1:
         budget //= n_hosts
-    timer = StageTimer()
     dedup = _DedupSet() if (cfg.deduplication and fastq2) else None
     reads_in = reads_kept = bases_in = bases_kept = dups = used = 0
     dev = resolve_device(device)
@@ -172,14 +172,14 @@ def filter_reads(
         if se_range is None:
             se_iter = _shard_iter(se_iter)
         with fastq.FastqWriter(out1, cfg.compress_output) as w, prefetch(
-            se_iter
+            se_iter, wait="filter.read_wait"
         ) as batches:
             for batch in batches:
                 batch = _trim_batch(batch, cfg.keep_region)
                 if cfg.truncate_only:
                     keep = np.ones(batch.capacity, dtype=bool)
                 else:
-                    with timer.stage("device"):
+                    with trace.span("filter.device"):
                         keep_d, _, _ = run_kernel(
                             batch.seqs, batch.quals, batch.lengths, batch.lengths
                         )
@@ -188,7 +188,7 @@ def filter_reads(
                 keep, used, stop = _apply_budget(keep, batch.lengths, used, budget)
                 reads_in += batch.count
                 bases_in += batch.total_bases
-                with timer.stage("write"):
+                with trace.span("filter.write"):
                     reads_kept += w.write_batch(batch, keep)
                 bases_kept += int(batch.lengths[keep].sum())
                 if stop:
@@ -205,7 +205,7 @@ def filter_reads(
         with fastq.FastqWriter(out1, cfg.compress_output) as w1, fastq.FastqWriter(
             out2, cfg.compress_output
         ) as w2, prefetch(
-            pe_iter
+            pe_iter, wait="filter.read_wait"
         ) as batches:
             for b1, b2 in batches:
                 b1 = _trim_batch(b1, cfg.keep_region)
@@ -214,7 +214,7 @@ def filter_reads(
                     keep = np.ones(b1.capacity, dtype=bool)
                     keep[b1.count:] = False
                 else:
-                    with timer.stage("device"):
+                    with trace.span("filter.device"):
                         # one quality cutoff per pair, from read 1's length
                         # (main.rs:236-241)
                         k1, h1, h2 = run_kernel(b1.seqs, b1.quals, b1.lengths,
@@ -230,7 +230,7 @@ def filter_reads(
                 keep, used, stop = _apply_budget(keep, b1.lengths, used, budget)
                 reads_in += b1.count
                 bases_in += b1.total_bases + b2.total_bases
-                with timer.stage("write"):
+                with trace.span("filter.write"):
                     reads_kept += w1.write_batch(b1, keep)
                     w2.write_batch(b2, keep)
                 bases_kept += int(b1.lengths[keep].sum() + b2.lengths[keep].sum())
@@ -243,7 +243,6 @@ def filter_reads(
         f"({100 * result.kept_ratio:.1f}%), {result.bases_kept}/{result.bases_in} bases"
         + (f", {result.duplicates} duplicates removed" if dedup else "")
     )
-    logger.debug(timer.report())
     if result.kept_ratio < 0.5 and result.reads_in:
         # reference warns on large size shrink (filter/filter.py:71-72)
         logger.warn("filter: more than half of the reads were discarded — check data quality")

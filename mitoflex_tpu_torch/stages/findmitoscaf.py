@@ -37,6 +37,7 @@ from ..models.profiles import ProfileSet
 from ..models.proteindb import parse_protein_id
 from ..models.taxonomy import Taxonomy
 from ..ops.overlap import check_circular
+from ..utils import trace
 from ..utils.helper import timed
 from ..utils.logger import logger
 
@@ -245,14 +246,18 @@ def findmitoscaf(
     walls = {"nhmmer": 0.0, "blast": 0.0}
 
     def part(name, fn, *args, **kw):
-        t0 = time.perf_counter()
-        try:
+        """``fn`` inside the span ``findmitoscaf.<name>``, which adds its
+        seconds to ``walls[name]``."""
+        with trace.span(f"findmitoscaf.{name}", into=(walls, name)):
             return fn(*args, **kw)
-        finally:
-            walls[name] += time.perf_counter() - t0
+
+    def merge(fn, *args, **kw):
+        """A merge (blastn's part of the walls) in a span of its own."""
+        with trace.span("findmitoscaf.merge"):
+            return fn(*args, **kw)
 
     if cfg.merge_method == 0 and not _recurse:
-        contigs, n = part("blast", merge_stage.merge_sequences,
+        contigs, n = part("blast", merge, merge_stage.merge_sequences,
                           contigs, cfg.merge_overlap, cfg.merge_start,
                           max_contig_len, device=device)
         logger.info(f"findmitoscaf: merged {n} sequences (global method)")
@@ -329,7 +334,7 @@ def findmitoscaf(
 
     if cfg.merge_method == 1 and not _recurse:
         picked, _, n = part(
-            "blast", merge_stage.merge_partial,
+            "blast", merge, merge_stage.merge_partial,
             picked, [c for c in contigs if c.id not in {p.id for p in picked}],
             cfg.merge_overlap, cfg.merge_start, max_contig_len, device=device,
         )
@@ -347,7 +352,7 @@ def findmitoscaf(
             selected, found, missing = sub.selected_candidates, sub.found_pcgs, sub.missing_pcgs
             hmm_frame = sub.hmm_frame
     elif cfg.merge_method == 2 and not _recurse:
-        picked, n = part("blast", merge_stage.merge_sequences,
+        picked, n = part("blast", merge, merge_stage.merge_sequences,
                          picked, cfg.merge_overlap, cfg.merge_start,
                          max_contig_len, device=device)
         logger.info(f"findmitoscaf: merged {n} sequences (global method)")

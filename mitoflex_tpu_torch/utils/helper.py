@@ -11,8 +11,9 @@ from __future__ import annotations
 import functools
 import os
 import time
-from typing import Callable, Iterable, Iterator, TypeVar
+from typing import Callable, Iterable, Iterator, Optional, TypeVar
 
+from . import trace
 from .logger import logger
 
 T = TypeVar("T")
@@ -24,19 +25,21 @@ def safe_makedirs(path: str) -> str:
     return path
 
 
-def timed(enabled: bool = True) -> Callable:
+def timed(name: Optional[str] = None) -> Callable:
     """Decorator logging wall-clock entry/exit per stage
-    (reference utility/helper.py:107-124)."""
+    (reference utility/helper.py:107-124); the call runs inside the stage's
+    span (utils/trace.py), named ``name`` or the function's name."""
 
     def deco(fn: Callable) -> Callable:
+        span_name = name or fn.__name__
+
         @functools.wraps(fn)
         def wrap(*args, **kwargs):
-            if not enabled:
-                return fn(*args, **kwargs)
             t0 = time.perf_counter()
             logger.info(f"Entering {fn.__module__}.{fn.__name__}")
             try:
-                return fn(*args, **kwargs)
+                with trace.span(span_name):
+                    return fn(*args, **kwargs)
             finally:
                 dt = time.perf_counter() - t0
                 logger.info(f"Leaving {fn.__module__}.{fn.__name__} after {dt:.2f}s")
@@ -61,43 +64,3 @@ def some(iterable: Iterable[T], n: int = 1) -> bool:
         if count > n:
             return True
     return False
-
-
-class StageTimer:
-    """Context-manager accumulator for per-stage wall times and counters.
-
-    TPU-side replacement for the reference's ad-hoc byte-ratio logs
-    (filter/filter.py:55-58): stages record items/bytes processed so the
-    run report can show reads/s and bp/s per stage.
-    """
-
-    def __init__(self) -> None:
-        self.times: dict[str, float] = {}
-        self.counters: dict[str, float] = {}
-
-    def stage(self, name: str):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self_inner):
-                self_inner.t0 = time.perf_counter()
-                return self_inner
-
-            def __exit__(self_inner, *exc):
-                timer.times[name] = timer.times.get(name, 0.0) + (
-                    time.perf_counter() - self_inner.t0
-                )
-                return False
-
-        return _Ctx()
-
-    def count(self, name: str, value: float) -> None:
-        self.counters[name] = self.counters.get(name, 0.0) + value
-
-    def report(self) -> str:
-        lines = ["stage timings:"]
-        for k, v in self.times.items():
-            lines.append(f"  {k}: {v:.2f}s")
-        for k, v in self.counters.items():
-            lines.append(f"  {k} = {v:g}")
-        return "\n".join(lines)
