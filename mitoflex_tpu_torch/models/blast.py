@@ -11,7 +11,9 @@ over a ``mesh`` when one is given (parallel/mesh.py).
 - ``tblastn``: protein DB vs six-frame-translated contigs (BLOSUM62), an
   outfmt-6 frame with nucleotide subject coordinates (sstart > send on the
   minus strand);
-- ``blastn``: nucleotide vs nucleotide, both strands, exact-match seeding;
+- ``blastn``: nucleotide vs nucleotide, both strands, exact-match seeding
+  (on a card one join of every subject's windows on the device, on the CPU
+  the reference's loop over subjects);
 - ``blast_filter`` and ``wash_blast_results``: the reference's dedup,
   gates and greedy per-subject selection.
 """
@@ -30,10 +32,12 @@ from ..io.fasta import FastaRecord
 from ..models import codon
 from ..models.proteindb import ProteinRecord, parse_protein_id
 
+from .. import device as device_mod
 from ..convert import host, to_device
 from ..device import resolve_device
 from ..parallel import mesh as mesh_mod
 from ..ops import sw as sw_ops
+from ..utils import trace
 
 OUTFMT6 = [
     "qseq", "sseq", "ident", "length", "mismatch", "gap",
@@ -43,6 +47,12 @@ OUTFMT6 = [
 # gapped Karlin-Altschul constants
 _BLOSUM62_LK = (0.267, 0.041)      # BLAST tblastn defaults (11,1)
 _NT_LK = (0.625, 0.41)             # blastn megablast-ish (+2/-3)
+# blastn's -evalue: the upstream wrapper runs it at 1e-5
+# (MitoFlex annotation/annotation_tookit.py:117) for both merges
+BLASTN_EVALUE = 1e-5
+# subject bases a tensor seed join takes at once (both strands: twice as
+# many windows); under 2 GB of device temporaries
+_SEED_BASES = 1 << 24
 
 
 def _bitscore(raw: np.ndarray, lam: float, K: float) -> np.ndarray:
@@ -188,6 +198,94 @@ def _group_anchor_windows(
                     mins[keep].tolist(), maxs[keep].tolist()))
 
 
+def _seed_groups_host(seed_idx: SeedIndex, subjects: Sequence[FastaRecord],
+                      min_seeds: int):
+    """blastn's seed windows, subject by subject and strand by strand:
+    (subject, strand, the strand's codes, query, min diag, max diag)."""
+    for si, subj in enumerate(subjects):
+        for strand, codes in ((1, subj.codes),
+                              (-1, np.asarray(encoding.revcomp(subj.codes)))):
+            aq, ap, at = seed_idx.hits_arrays(codes)
+            for qi, dmin, dmax in _group_anchor_windows(aq, ap, at, min_seeds):
+                yield si, strand, codes, qi, dmin, dmax
+
+
+def _seed_join_tensor(idx, n_queries: int, codes: torch.Tensor, lens: torch.Tensor,
+                      k: int, bits: int, min_seeds: int):
+    """One seed join of a run of subjects on their device: ``codes`` the
+    subjects' codes end to end, ``lens`` their lengths, ``idx`` the query
+    index's (vals, qi, qp) there. Returns the kept groups' keys
+    ((subject * 2 + strand) * n_queries + query, strand 0 the plus one)
+    in order, their min and max diagonals and their seed counts."""
+    dev = codes.device
+    n = codes.numel()
+    nw = 2 * n - k + 1
+    if nw <= 0:
+        z = np.zeros(0, np.int64)
+        return z, z, z
+    vals, qi, qp = idx
+    sid = torch.repeat_interleave(torch.arange(len(lens), device=dev), lens)
+    off = torch.cumsum(lens, 0) - lens
+    pos = torch.arange(n, device=dev) - off[sid]
+    # the minus strand, subject by subject in the same places: revcomp
+    minus = torch.as_tensor(encoding.COMPLEMENT, device=dev)[
+        codes[off[sid] + lens[sid] - 1 - pos].long()]
+    both = torch.cat([codes, minus]).long()
+    key = torch.zeros(nw, dtype=torch.int64, device=dev)
+    for j in range(k):
+        key = (key << bits) | both[j:j + nw]
+    w = torch.arange(nw, device=dev) % n
+    valid = pos[w] + k <= lens[sid[w]]
+    lo = torch.searchsorted(vals, key)
+    runs = (torch.searchsorted(vals, key, right=True) - lo) * valid
+    wsel = torch.nonzero(runs).squeeze(1)
+    r = runs[wsel]
+    w_hit = torch.repeat_interleave(wsel, r)
+    rows = torch.repeat_interleave(lo[wsel] - (torch.cumsum(r, 0) - r), r) + torch.arange(
+        w_hit.numel(), device=dev)
+    strand = (w_hit >= n).long()
+    g = w_hit - strand * n
+    s = sid[g]
+    diag = pos[g] - qp[rows]
+    gkey = (s * 2 + strand) * n_queries + qi[rows]
+    uk, inv, cnt = torch.unique(gkey, sorted=True, return_inverse=True, return_counts=True)
+    dmin = torch.full_like(uk, 1 << 62).scatter_reduce(0, inv, diag, "amin")
+    dmax = torch.full_like(uk, -(1 << 62)).scatter_reduce(0, inv, diag, "amax")
+    keep = cnt >= min_seeds
+    return host(uk[keep]), host(dmin[keep]), host(dmax[keep])
+
+
+def _seed_groups_tensor(seed_idx: SeedIndex, n_queries: int,
+                        subjects: Sequence[FastaRecord], min_seeds: int, dev):
+    """:func:`_seed_groups_host`'s windows, in its order, from one seed
+    join on ``dev`` a run of subjects of up to ``_SEED_BASES`` bases (a
+    subject longer than that alone), both strands at once."""
+    lens = np.array([len(s.seq) for s in subjects], np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    cat = encoding.encode("".join(s.seq for s in subjects))
+    idx = tuple(to_device(np.asarray(a, np.int64), dev)
+                for a in (seed_idx.vals, seed_idx.qi, seed_idx.qp))
+    a = 0
+    while a < len(subjects):
+        b = a + 1
+        while b < len(subjects) and offs[b + 1] - offs[a] <= _SEED_BASES:
+            b += 1
+        keys, dmins, dmaxs = _seed_join_tensor(
+            idx, n_queries, to_device(cat[offs[a]:offs[b]], dev),
+            to_device(lens[a:b], dev), seed_idx.k, seed_idx.bits, min_seeds)
+        minus = {}
+        for key, dmin, dmax in zip(keys.tolist(), dmins.tolist(), dmaxs.tolist()):
+            si = a + key // (2 * n_queries)
+            codes = cat[offs[si]:offs[si + 1]]
+            if (key // n_queries) % 2:
+                if si not in minus:
+                    minus[si] = np.asarray(encoding.revcomp(codes))
+                yield si, -1, minus[si], key % n_queries, dmin, dmax
+            else:
+                yield si, 1, codes, key % n_queries, dmin, dmax
+        a = b
+
+
 def tblastn(
     db: Sequence[ProteinRecord],
     contigs: Sequence[FastaRecord],
@@ -271,54 +369,74 @@ def blastn(
     device=None,
     mesh=None,
 ) -> pd.DataFrame:
-    """Nucleotide vs nucleotide → outfmt-6 frame (both strands)."""
+    """Nucleotide vs nucleotide → outfmt-6 frame (both strands).
+
+    A row's e-value is reckoned as blastn reckons it against a database
+    made of the subjects: query length x the subjects' summed length x
+    2^-bits; rows above ``BLASTN_EVALUE`` are dropped. Spans ``blastn.seed``
+    (counters ``blastn.subjects``, ``blastn.pairs``, ``blastn.cells``),
+    ``blastn.sw`` and ``blastn.frame`` (``blastn.rows`` before the cut,
+    ``blastn.rows_cut``)."""
     submat = sw_ops.nucleotide_matrix()
-    q_codes = [q.codes for q in queries]
-    seed_idx = SeedIndex(q_codes, seed_len, 5)
-    m_total = float(sum(len(q.seq) for q in queries)) or 1.0
-
     q_rows, t_rows, meta = [], [], []
-    for si, subj in enumerate(subjects):
-        for strand, codes in ((1, subj.codes), (-1, np.asarray(encoding.revcomp(subj.codes)))):
-            aq, ap, at = seed_idx.hits_arrays(codes)
-            for qi, dmin, dmax in _group_anchor_windows(aq, ap, at, min_seeds):
-                if skip_self and queries[qi].id == subj.id and strand == 1:
-                    continue
-                qlen = len(q_codes[qi])
-                lo = max(dmin - window_slack, 0)
-                hi = min(dmax + qlen + window_slack, len(codes))
-                q_rows.append(q_codes[qi])
-                t_rows.append(codes[lo:hi])
-                meta.append((qi, si, strand, lo))
+    with trace.span("blastn.seed"):
+        q_codes = [q.codes for q in queries]
+        seed_idx = SeedIndex(q_codes, seed_len, 5)
+        dev = resolve_device(device)
+        if device_mod.uses_host_mirrors(dev) or not len(seed_idx.vals):
+            groups = _seed_groups_host(seed_idx, subjects, min_seeds)
+        else:
+            groups = _seed_groups_tensor(seed_idx, len(queries), subjects, min_seeds, dev)
+        for si, strand, codes, qi, dmin, dmax in groups:
+            if skip_self and strand == 1 and queries[qi].id == subjects[si].id:
+                continue
+            qlen = len(q_codes[qi])
+            lo = max(dmin - window_slack, 0)
+            hi = min(dmax + qlen + window_slack, len(codes))
+            q_rows.append(q_codes[qi])
+            t_rows.append(codes[lo:hi])
+            meta.append((qi, si, strand, lo))
+        trace.count("blastn.subjects", len(subjects))
+        trace.count("blastn.pairs", len(q_rows))
+        if trace.recording():  # the sum is made only where it is kept
+            trace.count("blastn.cells", sum(len(q) * len(t) for q, t in zip(q_rows, t_rows)))
 
-    out = _batched_sw(q_rows, t_rows, submat, gap_open, gap_extend,
-                      encoding.N, device=device, mesh=mesh)
+    with trace.span("blastn.sw"):
+        out = _batched_sw(q_rows, t_rows, submat, gap_open, gap_extend,
+                          encoding.N, device=device, mesh=mesh)
     rows = []
-    if out is not None:
-        score, qf, qt, tf, tt, nid, ncol, ngo, ngc = out
-        lam, K = _NT_LK
-        bits = _bitscore(score, lam, K)
-        for i, (qi, si, strand, lo) in enumerate(meta):
-            ncols = max(int(ncol[i]), 1)
-            clen = len(subjects[si].seq)
-            a = lo + int(tf[i])
-            b = lo + int(tt[i])
-            if strand == 1:
-                s_start, s_end = a + 1, b + 1
-            else:
-                s_start, s_end = clen - a, clen - b  # start > end
-            ev = float(_evalue(bits[i : i + 1], m_total, clen)[0])
-            rows.append(
-                dict(
-                    qseq=queries[qi].id, sseq=subjects[si].id,
-                    ident=100.0 * int(nid[i]) / ncols,
-                    length=ncols, mismatch=ncols - int(nid[i]) - int(ngc[i]),
-                    gap=int(ngo[i]),
-                    qstart=int(qf[i]) + 1, qend=int(qt[i]) + 1,
-                    sstart=s_start, send=s_end,
-                    evalue=ev, score=float(bits[i]),
+    with trace.span("blastn.frame"):
+        if out is not None:
+            score, qf, qt, tf, tt, nid, ncol, ngo, ngc = out
+            lam, K = _NT_LK
+            bits = _bitscore(score, lam, K)
+            m_total = float(sum(len(q.seq) for q in queries)) or 1.0
+            n_total = float(sum(len(s.seq) for s in subjects)) or 1.0
+            evalues = _evalue(bits, m_total, n_total)
+            for i, (qi, si, strand, lo) in enumerate(meta):
+                if evalues[i] > BLASTN_EVALUE:
+                    continue
+                ncols = max(int(ncol[i]), 1)
+                clen = len(subjects[si].seq)
+                a = lo + int(tf[i])
+                b = lo + int(tt[i])
+                if strand == 1:
+                    s_start, s_end = a + 1, b + 1
+                else:
+                    s_start, s_end = clen - a, clen - b  # start > end
+                rows.append(
+                    dict(
+                        qseq=queries[qi].id, sseq=subjects[si].id,
+                        ident=100.0 * int(nid[i]) / ncols,
+                        length=ncols, mismatch=ncols - int(nid[i]) - int(ngc[i]),
+                        gap=int(ngo[i]),
+                        qstart=int(qf[i]) + 1, qend=int(qt[i]) + 1,
+                        sstart=s_start, send=s_end,
+                        evalue=float(evalues[i]), score=float(bits[i]),
+                    )
                 )
-            )
+            trace.count("blastn.rows", len(meta))
+            trace.count("blastn.rows_cut", len(meta) - len(rows))
     return pd.DataFrame(rows, columns=OUTFMT6)
 
 

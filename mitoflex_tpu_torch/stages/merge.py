@@ -3,7 +3,11 @@
 Port of mitoflex_tpu/stages/merge.py, whose merge algebra is host code:
 it is copied here because the reference module imports the jax-importing
 blast module. The homology search is the port's ``models.blast.blastn`` on
-the caller's ``device``.
+the caller's ``device``. On purpose, unlike the JAX package, both merges
+see only blastn rows of e-value 1e-5 or less over the subject set, as the
+upstream runs its blastn (``-evalue 1e-5``, annotation/annotation_tookit.py:117;
+``blast.BLASTN_EVALUE``): without the cut a chance row of 60-70 columns
+can join a nuclear contig to the mitogenome.
 
 - ``merge_feasible``: merge iff one sequence contains the other, or the
   concatenation is strictly longer than both and within max_length;
@@ -11,7 +15,9 @@ the caller's ``device``.
   que/subj pair dedup;
 - ``merge_overlaps``: greedy pairwise merging with revcomp handling,
   emitting ``M{i}`` records with the ``multi=32767`` sentinel;
-- ``merge_sequences`` / ``merge_partial``: the fixpoint loops.
+- ``merge_sequences`` / ``merge_partial``: the fixpoint loops, one span
+  ``merge.round`` a round (attribute ``round``; counters ``merge.rows_kept``,
+  the rows that passed every rule, and ``merge.joins``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import pandas as pd
 
 from ..io import encoding
 from ..io.fasta import FastaRecord
+from ..utils import trace
 from ..utils.logger import logger
 from ..utils.seq import MERGED_MULTI_SENTINEL
 
@@ -145,23 +152,26 @@ def merge_sequences(
     """Global self-vs-self merge fixpoint (findmitoscaf.py:471-506)."""
     if len(records) <= 1:
         return records, index
-    for _ in range(16):  # fixpoint cap: each round must merge >=1 pair
-        seqs = {r.id: r for r in records}
-        frame = blast.blastn(records, records, skip_self=True, device=device)
-        if frame.empty:
-            break
-        washed = wash_merge_frame(
-            frame, {r.id: len(r.seq) for r in records},
-            search_range, overlapped_len, max_length,
-        )
-        if washed.empty:
-            break
-        washed = washed.sort_values(["score", "ident"], kind="stable")
-        records, new_index = merge_overlaps(washed, seqs, index)
-        if new_index == index:
-            break
-        logger.debug(f"merge_sequences: merged {new_index - index} pairs")
-        index = new_index
+    for rnd in range(16):  # fixpoint cap: each round must merge >=1 pair
+        with trace.span("merge.round", round=rnd):
+            seqs = {r.id: r for r in records}
+            frame = blast.blastn(records, records, skip_self=True, device=device)
+            if frame.empty:
+                break
+            washed = wash_merge_frame(
+                frame, {r.id: len(r.seq) for r in records},
+                search_range, overlapped_len, max_length,
+            )
+            trace.count("merge.rows_kept", len(washed))
+            if washed.empty:
+                break
+            washed = washed.sort_values(["score", "ident"], kind="stable")
+            records, new_index = merge_overlaps(washed, seqs, index)
+            trace.count("merge.joins", new_index - index)
+            if new_index == index:
+                break
+            logger.debug(f"merge_sequences: merged {new_index - index} pairs")
+            index = new_index
     return records, index
 
 
@@ -177,51 +187,54 @@ def merge_partial(
     contig set (findmitoscaf.py merge_partial:510-590). Returns (picked',
     db', merges)."""
     index = 0
-    for _ in range(16):  # fixpoint cap
-        picked, index_merged = merge_sequences(
-            picked, overlapped_len, search_range, max_length, index, device
-        )
-        modified = index_merged > index
-        index = index_merged
+    for rnd in range(16):  # fixpoint cap
+        with trace.span("merge.round", round=rnd):
+            picked, index_merged = merge_sequences(
+                picked, overlapped_len, search_range, max_length, index, device
+            )
+            modified = index_merged > index
+            index = index_merged
 
-        frame = blast.blastn(picked, db_records, skip_self=True, device=device)
-        if not frame.empty:
-            frame = frame[frame.qseq != frame.sseq]
-            frame = frame[
-                ((frame.sstart < search_range) & (frame.send < search_range))
-                | (frame.qstart < search_range)
+            frame = blast.blastn(picked, db_records, skip_self=True, device=device)
+            if not frame.empty:
+                frame = frame[frame.qseq != frame.sseq]
+                frame = frame[
+                    ((frame.sstart < search_range) & (frame.send < search_range))
+                    | (frame.qstart < search_range)
+                ]
+                frame = frame[frame.length >= overlapped_len]
+            if frame.empty:
+                if not modified:
+                    break
+                continue
+            all_seqs = {r.id: r for r in picked + db_records}
+            ok = frame.apply(
+                lambda r: merge_feasible(
+                    len(all_seqs[r.qseq].seq), len(all_seqs[r.sseq].seq),
+                    int(r.length), int(r.qstart), int(r.qend),
+                    int(r.sstart), int(r.send), max_length,
+                ),
+                axis=1,
+            )
+            frame = frame[ok]
+            trace.count("merge.rows_kept", len(frame))
+            if frame.empty:
+                if not modified:
+                    break
+                continue
+            frame = frame.sort_values("score", ascending=True, kind="stable")
+            merged_rows, index2 = merge_overlaps(
+                frame, {k: all_seqs[k] for k in set(frame.qseq) | set(frame.sseq)}, index
+            )
+            trace.count("merge.joins", index2 - index)
+            new_merged = [r for r in merged_rows if r.id.startswith("M")]
+            consumed = (set(frame.qseq) | set(frame.sseq)) - {r.id for r in merged_rows}
+            if index2 == index:
+                break
+            modified = True
+            index = index2
+            picked = [r for r in picked if r.id not in consumed] + [
+                r for r in new_merged if r.id not in {p.id for p in picked}
             ]
-            frame = frame[frame.length >= overlapped_len]
-        if frame.empty:
-            if not modified:
-                break
-            continue
-        all_seqs = {r.id: r for r in picked + db_records}
-        ok = frame.apply(
-            lambda r: merge_feasible(
-                len(all_seqs[r.qseq].seq), len(all_seqs[r.sseq].seq),
-                int(r.length), int(r.qstart), int(r.qend),
-                int(r.sstart), int(r.send), max_length,
-            ),
-            axis=1,
-        )
-        frame = frame[ok]
-        if frame.empty:
-            if not modified:
-                break
-            continue
-        frame = frame.sort_values("score", ascending=True, kind="stable")
-        merged_rows, index2 = merge_overlaps(
-            frame, {k: all_seqs[k] for k in set(frame.qseq) | set(frame.sseq)}, index
-        )
-        new_merged = [r for r in merged_rows if r.id.startswith("M")]
-        consumed = (set(frame.qseq) | set(frame.sseq)) - {r.id for r in merged_rows}
-        if index2 == index:
-            break
-        modified = True
-        index = index2
-        picked = [r for r in picked if r.id not in consumed] + [
-            r for r in new_merged if r.id not in {p.id for p in picked}
-        ]
-        db_records = [r for r in db_records if r.id not in consumed]
+            db_records = [r for r in db_records if r.id not in consumed]
     return picked, db_records, index

@@ -67,3 +67,27 @@ def write_fasta(path, seqs):
         for name, seq in seqs:
             f.write(f">{name}\n{seq}\n")
     return str(path)
+
+
+def chance_copy(seq: str, core=(21, 33)) -> str:
+    """``seq`` with every third base changed outside an exact 12-base core
+    (one blastn seed): 74-76% identity, which a local alignment keeps
+    whole, as a chance hit between unrelated contigs looks."""
+    out = []
+    for i, b in enumerate(seq):
+        if not core[0] <= i < core[1] and i % 3 == 2:
+            b = "ACGT"[("ACGT".index(b) + 1) % 4]
+        out.append(b)
+    return "".join(out)
+
+
+def merge_draft(rng: np.random.Generator, overlap):
+    """A small draft for the partial merge, as named sequences: the circle
+    (1,500 bp), a nuclear contig of 1,300 random bases and then
+    ``overlap(circle)``, and two tandem-repeat contigs of 9,996 bp that
+    seed nothing but count in the subject set's length."""
+    circle = random_genome(rng, 1500)
+    nuc = random_genome(rng, 1300) + overlap(circle)
+    unit = "ACCGTTA"
+    pad = [(f"rep{i}", (unit[i:] + unit[:i]) * 1428) for i in range(2)]
+    return ("circle", circle), [("nuc", nuc)] + pad

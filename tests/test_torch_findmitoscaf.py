@@ -3,6 +3,14 @@ package on the CPU: nhmmer_search, tblastn, blastn, merge_sequences,
 merge_partial, findmitoscaf (merge_method 1 and 2) and coverage_of_reads,
 on the synthetic profile set of tests/profile_fixture.py.
 
+One departure is held on purpose: the port's blastn reckons each row's
+e-value against the subject set as one database and drops rows above the
+upstream's ``-evalue 1e-5`` (annotation/annotation_tookit.py:117), where the
+JAX package reckons against each subject alone and cuts nothing. The JAX
+frame is brought to the upstream's reckoning inside the tests
+(``_upstream_blastn``), and the partial merge is held to a plain statement
+of the upstream's rule (``_upstream_merge_rows``).
+
 Tolerances: frames must be equal row for row, in the same order, with the
 same dtypes. Integer columns are exact; the float columns (scores and
 E-values) derive from float32 alignment scores that XLA and eager PyTorch
@@ -29,9 +37,11 @@ from mitoflex_tpu_torch.models import nhmmer as port_nhmmer
 from mitoflex_tpu_torch.ops import mapper as port_mapper
 from mitoflex_tpu_torch.stages import findmitoscaf as port_fms
 from mitoflex_tpu_torch.stages import merge as port_merge
+from mitoflex_tpu_torch.testing import synth as port_synth
 from tests import profile_fixture, synth
 
 RTOL = 1e-5
+UPSTREAM_EVALUE = 1e-5  # blastn -evalue in the upstream's wrapper
 
 
 @pytest.fixture(scope="module")
@@ -54,6 +64,45 @@ def _records(recs):
     return [(r.id, r.seq, r.flag, r.multi) for r in recs]
 
 
+def _upstream_blastn(frame, subjects):
+    """A JAX blastn frame with each e-value reckoned over the subject set as
+    one database (query length x the subjects' summed length x 2^-bits,
+    from the row's own per-subject e-value) and the rows above the
+    upstream's -evalue dropped."""
+    lens = {r.id: len(r.seq) for r in subjects}
+    n_total = sum(lens.values())
+    f = frame.copy()
+    f["evalue"] = f.evalue * n_total / f.sseq.map(lens)
+    return f[f.evalue <= UPSTREAM_EVALUE]
+
+
+def _upstream_merge_rows(frame, queries, subjects, search_range, overlapped_len=50,
+                         evalue_cut=True):
+    """The rows of a blastn frame that the upstream's partial merge may join
+    on: another record, a terminal start within ``search_range``, at least
+    ``overlapped_len`` columns and, with ``evalue_cut``, 2^-bits x the query
+    length x the subjects' summed length at most 1e-5."""
+    qlens = {r.id: len(r.seq) for r in queries}
+    n_total = sum(len(r.seq) for r in subjects)
+    rows = []
+    for r in frame.itertuples():
+        if r.qseq == r.sseq or r.length < overlapped_len:
+            continue
+        if not ((r.sstart < search_range and r.send < search_range)
+                or r.qstart < search_range):
+            continue
+        if evalue_cut and qlens[r.qseq] * n_total * 2.0 ** -r.score > UPSTREAM_EVALUE:
+            continue
+        rows.append(r)
+    return rows
+
+
+def _draft(rng, overlap):
+    """synth.merge_draft's circle (multi 400) and contigs (multi 20)."""
+    (cid, circle), contigs = port_synth.merge_draft(rng, overlap)
+    return [_contig(cid, circle, 400.0)], [_contig(n, s, 20.0) for n, s in contigs]
+
+
 def test_nhmmer_search_matches_jax(fake, rng):
     hmms = ProfileSet(fake.profile_dir).cds_hmms(fake.clade)
     g = fake.genome
@@ -72,7 +121,7 @@ def test_blast_searches_match_jax(fake, rng):
     recs = [_contig("a", g[:900], 30.0), _contig("b", g[820:], 30.0),
             _contig("c", profile_fixture._rc(g[400:1100]), 20.0),
             _contig("d", synth.random_genome(rng, 500), 10.0)]
-    want = jax_blast.blastn(recs, recs, skip_self=True)
+    want = _upstream_blastn(jax_blast.blastn(recs, recs, skip_self=True), recs)
     assert len(want) >= 4
     _frames_equal(port_blast.blastn(recs, recs, skip_self=True, device="cpu"), want)
     db = ProfileSet(fake.profile_dir).merged_protein_db()
@@ -99,6 +148,79 @@ def test_merges_match_jax(fake, rng):
     assert want[2] == got[2] >= 1
     assert _records(got[0]) == _records(want[0])
     assert _records(got[1]) == _records(want[1])
+    # the frames both merges joined on, the JAX one at the upstream's reckoning
+    for queries, subjects in ((recs, recs), (recs[1:2], recs[::2])):
+        _frames_equal(port_blast.blastn(queries, subjects, skip_self=True, device="cpu"),
+                      _upstream_blastn(jax_blast.blastn(queries, subjects, skip_self=True),
+                                       subjects))
+
+
+def test_partial_merge_leaves_a_chance_row():
+    """A nuclear contig that shares with the circle's start only a 53-column
+    stretch at 75% identity: under the cut per subject (the JAX package's
+    reckoning, had it cut) but above it over the draft. The JAX package
+    joins the two; the upstream's rule and the port do not."""
+    picked, db = _draft(np.random.default_rng(1), lambda c: port_synth.chance_copy(c[:54]))
+    frame = jax_blast.blastn(picked, db, skip_self=True)
+    row = frame[(frame.sseq == "nuc") & (frame.length >= 50)]
+    assert len(row) == 1 and 70 <= row.ident.iloc[0] <= 80
+    assert row.evalue.iloc[0] <= UPSTREAM_EVALUE  # per subject: kept
+    assert port_blast.BLASTN_EVALUE == UPSTREAM_EVALUE
+    assert len(_upstream_merge_rows(frame, picked, db, 50, evalue_cut=False)) == 1
+    assert _upstream_merge_rows(frame, picked, db, 50) == []
+    want = jax_merge.merge_partial(picked, db, 50, 50, 20000)
+    assert want[2] == 1 and len(want[0][0].seq) == 1300 + 1500
+    got = port_merge.merge_partial(picked, db, 50, 50, 20000, device="cpu")
+    assert got[2] == 0
+    assert _records(got[0]) == _records(picked) and _records(got[1]) == _records(db)
+
+
+def test_partial_merge_joins_a_true_overlap():
+    """A nuclear contig whose last 85 bases are the circle's first: the
+    upstream's rule keeps the row, and the port joins as the JAX package."""
+    picked, db = _draft(np.random.default_rng(2), lambda c: c[:85])
+    frame = jax_blast.blastn(picked, db, skip_self=True)
+    assert len(_upstream_merge_rows(frame, picked, db, 50)) >= 1
+    want = jax_merge.merge_partial(picked, db, 50, 50, 20000)
+    got = port_merge.merge_partial(picked, db, 50, 50, 20000, device="cpu")
+    assert want[2] == got[2] == 1
+    assert len(got[0][0].seq) == 1300 + 1500
+    assert _records(got[0]) == _records(want[0])
+    assert _records(got[1]) == _records(want[1])
+
+
+@pytest.mark.parametrize("seed_bases", [1 << 24, 700])
+def test_blastn_seed_join_matches_the_subject_loop(monkeypatch, seed_bases):
+    """The card's seed join (every subject's windows on both strands at
+    once, in runs of ``seed_bases`` bases) gives the CPU's loop over
+    subjects: the same windows in the same order, and the same frame. Draft
+    with N runs, subjects shorter than a seed, a reverse-strand copy, the
+    circle itself (skip_self) and a second query."""
+    rng = np.random.default_rng(3)
+    circle = synth.random_genome(rng, 600)
+    queries = [_contig("circle", circle, 400.0),
+               _contig("q2", synth.random_genome(rng, 100) + "N" * 12
+                       + circle[300:440], 30.0)]
+    subjects = [_contig(f"s{i}", synth.random_genome(rng, int(n)), 20.0)
+                for i, n in enumerate(rng.integers(5, 400, 30))]
+    subjects += [_contig("ov", synth.random_genome(rng, 200) + circle[:150], 20.0),
+                 _contig("rc", profile_fixture._rc(circle[200:500]) + "N" * 15, 20.0),
+                 _contig("circle", circle, 400.0)]
+    monkeypatch.setattr(port_blast, "_SEED_BASES", seed_bases)
+    for min_seeds in (1, 2):
+        idx = port_blast.SeedIndex([q.codes for q in queries], 11, 5)
+        loop = list(port_blast._seed_groups_host(idx, subjects, min_seeds))
+        join = list(port_blast._seed_groups_tensor(idx, len(queries), subjects,
+                                                   min_seeds, "cpu"))
+        assert len(loop) == len(join) >= 4
+        for a, b in zip(loop, join):
+            assert a[:2] == b[:2] and a[3:] == b[3:]
+            assert np.array_equal(a[2], b[2])
+    want = port_blast.blastn(queries, subjects, skip_self=True, device="cpu")
+    monkeypatch.setattr(port_blast.device_mod, "uses_host_mirrors", lambda device=None: False)
+    got = port_blast.blastn(queries, subjects, skip_self=True, device="cpu")
+    assert len(want) >= 3
+    pd.testing.assert_frame_equal(got, want)
 
 
 @pytest.mark.parametrize("merge_method", [2, 1])

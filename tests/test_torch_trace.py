@@ -4,7 +4,9 @@ hang under the span that opened it, counters land on the innermost span of
 their own thread; under ``torch.profiler`` the main thread's spans are
 ``mfx.port.*`` ranges and the anchor places a helper thread's span on the
 trace's clock; ``run_all`` writes the same bytes traced and untraced; and
-``MITOFLEX_TORCH_PROFILE`` writes the helper threads' spans into its trace.
+``MITOFLEX_TORCH_PROFILE`` writes the helper threads' spans into its trace;
+the partial merge's rounds hold blastn's spans, whose counters account for
+every row of the frames it returned.
 """
 
 import json
@@ -22,6 +24,8 @@ from mitoflex_tpu_torch import cli as port_cli
 from mitoflex_tpu_torch import convert
 from mitoflex_tpu_torch import pipeline as port_pipeline
 from mitoflex_tpu_torch.config import PipelineConfig
+from mitoflex_tpu_torch.stages import merge as merge_stage
+from mitoflex_tpu_torch.io.fasta import FastaRecord
 from mitoflex_tpu_torch.io.prefetch import prefetch
 from mitoflex_tpu_torch.testing import profile_fixture, synth
 from mitoflex_tpu_torch.utils import trace
@@ -350,8 +354,8 @@ def test_run_all_traced_writes_the_untraced_bytes(small):
     for name in ("filter.read_wait", "filter.device", "filter.write", "count.gate",
                  "count.merge", "graph.pass", "graph.clean", "graph.unitigs",
                  "findmitoscaf.nhmmer", "nhmmer.v1", "nhmmer.v2", "nhmmer.window",
-                 "nhmmer.frame", "findmitoscaf.blast", "findmitoscaf.merge",
-                 "annotate.tblastn", "annotate.genewise", "annotate.trna", "annotate.rrna"):
+                 "nhmmer.frame", "findmitoscaf.blast", "findmitoscaf.merge", "merge.round",
+                 "blastn.seed", "blastn.sw", "blastn.frame", "annotate.tblastn", "annotate.genewise", "annotate.trna", "annotate.rrna"):
         assert any(s["name"] == name for s in spans), name
 
 
@@ -379,3 +383,56 @@ def test_cli_profile_writes_helper_thread_spans(small, tmp_path, monkeypatch, ca
             assert lo - 500 <= float(e["ts"]) <= hi + 500
     waits = [e for e in port if e["name"] == "mfx.port.filter.read_wait"]
     assert waits and all("io.wait_ns" in e.get("args", {}) for e in waits)
+
+
+def _merge_draft(overlap):
+    (cid, circle), contigs = synth.merge_draft(np.random.default_rng(1), overlap)
+    rec = lambda n, s, m: FastaRecord(n, s, {"flag": 0, "multi": m, "len": len(s)})
+    return [rec(cid, circle, 400.0)], [rec(n, s, 20.0) for n, s in contigs]
+
+
+@pytest.mark.parametrize("overlap, joins", [
+    (lambda c: synth.chance_copy(c[:54]), 0),  # a chance row, 75% over 53 columns
+    (lambda c: c[:85], 1),                     # a true overlap of 85 bases
+], ids=["chance_row", "true_overlap"])
+def test_merge_rounds_hold_blastn_spans_and_counters(monkeypatch, overlap, joins):
+    picked, db = _merge_draft(overlap)
+    frames = []
+    real = merge_stage.blast.blastn
+
+    def blastn(*args, **kwargs):
+        frames.append(real(*args, **kwargs))
+        return frames[-1]
+
+    monkeypatch.setattr(merge_stage.blast, "blastn", blastn)
+    got = merge_stage.merge_partial(picked, db, 50, 50, 20000, device="cpu")
+    assert got[2] == joins and trace.export()["spans"] == []  # off: no record
+    frames.clear()
+    trace.enable()
+    with trace.span("findmitoscaf.merge"):
+        assert merge_stage.merge_partial(picked, db, 50, 50, 20000, device="cpu")[2] == joins
+    trace.disable()
+    spans = trace.export()["spans"]
+    by_id = {s["id"]: s for s in spans}
+    rounds = [s for s in spans if s["name"] == "merge.round"]
+    # one round a blastn call: a single picked record skips merge_sequences' loop
+    assert [s["attrs"]["round"] for s in rounds] == list(range(len(frames)))
+    assert {by_id[s["parent"]]["name"] for s in rounds} == {"findmitoscaf.merge"}
+    for name in ("blastn.seed", "blastn.sw", "blastn.frame"):
+        parts = [s for s in spans if s["name"] == name]
+        assert len(parts) == len(frames), name
+        assert all(by_id[s["parent"]]["name"] == "merge.round" for s in parts), name
+
+    def total(counter):
+        return sum(s["counters"].get(counter, 0) for s in spans)
+
+    assert total("blastn.rows") - total("blastn.rows_cut") == sum(len(f) for f in frames)
+    assert total("blastn.subjects") == sum(len(db) - i for i in range(len(frames)))
+    assert total("blastn.pairs") >= 1 and total("blastn.cells") >= 1500 * 85
+    nuc_rows = [f[(f.sseq == "nuc") & (f.length >= 50)] for f in frames]
+    if joins:
+        assert len(nuc_rows[0]) == 1
+        assert total("merge.rows_kept") >= 1 and total("merge.joins") == 1
+    else:
+        assert total("blastn.rows_cut") >= 1 and sum(len(f) for f in nuc_rows) == 0
+        assert total("merge.rows_kept") == 0 and total("merge.joins") == 0
