@@ -2008,7 +2008,9 @@ def check_sw_kernel(dev, calls: list, seed: int) -> dict:
     """Phase 14: the Smith-Waterman kernel of csrc/sw.cu against its plain
     loop on every case of ``kernel_cases.sw_cases`` (the blastn-size and
     over-the-packing-limit ones included) at every layout the chooser
-    weighs, the wide instantiation and a wrapping layout; each case timed
+    weighs, the wide instantiation and a wrapping layout; the score kernel
+    of csrc/sw_score.cu on every ``kernel_cases.sw_score_cases`` case
+    against its plain version; each case timed
     beside its bound (the plain loop too at the card-size cases), the
     real-size tblastn shape and the golden run's largest call beside the
     plain loop (one wrapper call of it must make exactly one launch); the
@@ -2028,6 +2030,12 @@ def check_sw_kernel(dev, calls: list, seed: int) -> dict:
          f"layout: all nine fields bit-equal to the plain loop "
          f"({time.perf_counter() - t0:.2f} s); {_check_dp_smem()} layouts' shared "
          f"memory equal to the library's")
+    t0 = time.perf_counter()
+    n, pairs = kernel_cases.check_sw_scores(dev)
+    _log(f"SW score kernel (csrc/sw_score.cu) on {n} seeded cases, {pairs} pairs (the SW "
+         f"cases, both orientations, sides past one and two tiles, the merge's shape and "
+         f"the int32 extremes): scores bit-equal to sw_scores_plain "
+         f"({time.perf_counter() - t0:.2f} s)")
     for case in kernel_cases.sw_cases():
         args, go, ge = kernel_cases.sw_tensors(case, dev)
         big = case[1].shape[1] >= kernel_cases.SW_BLASTN_LQ

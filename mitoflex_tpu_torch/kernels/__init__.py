@@ -32,8 +32,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libmitoflex_kernels.so"
-SOURCES = ("filter.cu", "merge.cu", "sort.cu", "viterbi.cu", "sw.cu", "cyk.cu",
-           "genewise.cu")
+SOURCES = ("filter.cu", "merge.cu", "sort.cu", "viterbi.cu", "sw.cu", "sw_score.cu",
+           "cyk.cu", "genewise.cu")
 HEADERS = ("merge_path.cuh", "handoff.cuh", "row_pipeline.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -164,6 +164,12 @@ def library() -> ctypes.CDLL:
             lib.mfx_sw_align.argtypes = [vp] * 5 + [i32] * 4 + [ctypes.c_float] * 2 \
                 + [i32] * 5 + [vp, vp, vp]
             lib.mfx_sw_align.restype = i32
+            # queries, q_lens, q_index, targets, t_offsets, order, matrix, K,
+            # Q, B, Lq, T, gap open and extend, the compare form (flag, match,
+            # mismatch), scratch, blocks, work counter, output, stream
+            lib.mfx_sw_scores.argtypes = [vp] * 7 + [i32] * 4 + [ctypes.c_longlong] \
+                + [i32] * 5 + [vp, i32, vp, vp, vp]
+            lib.mfx_sw_scores.restype = i32
             # queries, q_lens, target codes, t_lens, matrix, K, B, Lq, T, stop
             # code, gap open and extend, frameshift and stop penalties, the
             # layout, scratch, output, stream
@@ -181,7 +187,7 @@ def library() -> ctypes.CDLL:
                                            ctypes.c_float, vp, vp, vp, i32, vp]
             lib.mfx_cyk_banded.restype = i32
             for fn in (lib.mfx_merge_max_words, lib.mfx_merge_max_payloads,
-                       lib.mfx_sort_tile_rows):
+                       lib.mfx_sort_tile_rows, lib.mfx_sw_scores_blocks):
                 fn.argtypes = []
                 fn.restype = i32
             lib.mfx_merge_tile_rows.argtypes = [i32, i32]

@@ -3,10 +3,12 @@
 Port of mitoflex_tpu/models/blast.py. The seed index (exact k-mer join),
 the window selection and the hit algebra (``blast_filter``,
 ``wash_blast_results``) are the reference's host code, copied because the
-reference module imports jax. The candidate windows are scored by the
+reference module imports jax. The candidate windows are aligned by the
 port's batched Smith-Waterman (ops/sw.py) on the caller's ``device``, in
 batches of 64 pairs padded only to their longest row, each batch sharded
-over a ``mesh`` when one is given (parallel/mesh.py).
+over a ``mesh`` when one is given (parallel/mesh.py). blastn scores every
+window first (``sw_scores``, one launch on a card) and aligns only those
+that pass its e-value cut; on a mesh of several shards it aligns them all.
 
 - ``tblastn``: protein DB vs six-frame-translated contigs (BLOSUM62), an
   outfmt-6 frame with nucleotide subject coordinates (sstart > send on the
@@ -53,6 +55,9 @@ BLASTN_EVALUE = 1e-5
 # subject bases a tensor seed join takes at once (both strands: twice as
 # many windows); under 2 GB of device temporaries
 _SEED_BASES = 1 << 24
+# target bases a score launch takes at once: 1 GiB of codes on the device
+# (the kernel's scratch has its own cap, ops/sw.SCORE_SCRATCH_BYTES)
+_SCORE_BASES = 1 << 30
 
 
 def _bitscore(raw: np.ndarray, lam: float, K: float) -> np.ndarray:
@@ -102,6 +107,32 @@ def _batched_sw(q_rows, t_rows, submat, gap_open, gap_extend, fill, batch=64,
     if not res:
         return None
     return [np.concatenate([r[i] for r in res]) for i in range(9)]
+
+
+def _window_scores(q_codes: Sequence[np.ndarray], qis: Sequence[int],
+                   t_rows: Sequence[np.ndarray], submat, gap_open: float,
+                   gap_extend: float, dev) -> np.ndarray:
+    """float32 score of each window ``t_rows[i]`` against query
+    ``q_codes[qis[i]]`` (``ops.sw.sw_scores``): the queries padded once, the
+    windows end to end, one call a run of up to ``_SCORE_BASES`` window
+    bases (a longer window alone)."""
+    if not len(t_rows):
+        return np.zeros(0, np.float32)
+    qs, ql = _pad_rows(list(q_codes), encoding.N)
+    qs, ql = to_device(qs, dev), to_device(ql, dev)
+    qis = np.asarray(qis, np.int64)
+    ends = np.cumsum([len(t) for t in t_rows], dtype=np.int64)
+    out, a = [], 0
+    while a < len(t_rows):
+        base = ends[a - 1] if a else 0
+        b = max(int(np.searchsorted(ends, base + _SCORE_BASES, side="right")), a + 1)
+        offs = np.concatenate([[0], ends[a:b] - base])
+        cat = np.concatenate(t_rows[a:b]).astype(np.int8, copy=False)
+        out.append(host(sw_ops.sw_scores(
+            qs, ql, to_device(qis[a:b], dev), to_device(cat, dev), to_device(offs, dev),
+            submat, gap_open, gap_extend)))
+        a = b
+    return np.concatenate(out)
 
 
 def _pack_windows(codes: np.ndarray, k: int, bits: int) -> np.ndarray:
@@ -357,6 +388,31 @@ def tblastn(
     return frame_df
 
 
+def blastn_windows(queries: Sequence[FastaRecord], subjects: Sequence[FastaRecord],
+                   seed_len: int, min_seeds: int, window_slack: int, skip_self: bool, dev):
+    """blastn's candidate pairs: the queries' codes, and for every seed group
+    (on a card one join of every subject's windows, on the CPU the loop over
+    subjects) its query's codes, its window of the subject strand and
+    (query, subject, strand, window start)."""
+    q_codes = [q.codes for q in queries]
+    seed_idx = SeedIndex(q_codes, seed_len, 5)
+    if device_mod.uses_host_mirrors(dev) or not len(seed_idx.vals):
+        groups = _seed_groups_host(seed_idx, subjects, min_seeds)
+    else:
+        groups = _seed_groups_tensor(seed_idx, len(queries), subjects, min_seeds, dev)
+    q_rows, t_rows, meta = [], [], []
+    for si, strand, codes, qi, dmin, dmax in groups:
+        if skip_self and strand == 1 and queries[qi].id == subjects[si].id:
+            continue
+        qlen = len(q_codes[qi])
+        lo = max(dmin - window_slack, 0)
+        hi = min(dmax + qlen + window_slack, len(codes))
+        q_rows.append(q_codes[qi])
+        t_rows.append(codes[lo:hi])
+        meta.append((qi, si, strand, lo))
+    return q_codes, q_rows, t_rows, meta
+
+
 def blastn(
     queries: Sequence[FastaRecord],
     subjects: Sequence[FastaRecord],
@@ -373,68 +429,76 @@ def blastn(
 
     A row's e-value is reckoned as blastn reckons it against a database
     made of the subjects: query length x the subjects' summed length x
-    2^-bits; rows above ``BLASTN_EVALUE`` are dropped. Spans ``blastn.seed``
-    (counters ``blastn.subjects``, ``blastn.pairs``, ``blastn.cells``),
-    ``blastn.sw`` and ``blastn.frame`` (``blastn.rows`` before the cut,
+    2^-bits; rows above ``BLASTN_EVALUE`` are dropped. The cut reads the
+    score alone, so every window is scored first (``ops.sw.sw_scores``) and
+    only the rows that pass it are aligned for their envelopes and path
+    counts (``_batched_sw``); the frame is the one aligning every window
+    would give. On a ``mesh`` of several shards every window is aligned,
+    sharded. Spans ``blastn.seed`` (counters ``blastn.subjects``,
+    ``blastn.pairs``, ``blastn.cells``), ``blastn.sw`` (``blastn.score``
+    inside, ``blastn.score_pairs``, ``blastn.path_pairs``: the pairs scored
+    and aligned) and ``blastn.frame`` (``blastn.rows`` before the cut,
     ``blastn.rows_cut``)."""
     submat = sw_ops.nucleotide_matrix()
-    q_rows, t_rows, meta = [], [], []
+    dev = resolve_device(device)
     with trace.span("blastn.seed"):
-        q_codes = [q.codes for q in queries]
-        seed_idx = SeedIndex(q_codes, seed_len, 5)
-        dev = resolve_device(device)
-        if device_mod.uses_host_mirrors(dev) or not len(seed_idx.vals):
-            groups = _seed_groups_host(seed_idx, subjects, min_seeds)
-        else:
-            groups = _seed_groups_tensor(seed_idx, len(queries), subjects, min_seeds, dev)
-        for si, strand, codes, qi, dmin, dmax in groups:
-            if skip_self and strand == 1 and queries[qi].id == subjects[si].id:
-                continue
-            qlen = len(q_codes[qi])
-            lo = max(dmin - window_slack, 0)
-            hi = min(dmax + qlen + window_slack, len(codes))
-            q_rows.append(q_codes[qi])
-            t_rows.append(codes[lo:hi])
-            meta.append((qi, si, strand, lo))
+        q_codes, q_rows, t_rows, meta = blastn_windows(queries, subjects, seed_len, min_seeds,
+                                                       window_slack, skip_self, dev)
         trace.count("blastn.subjects", len(subjects))
         trace.count("blastn.pairs", len(q_rows))
         if trace.recording():  # the sum is made only where it is kept
             trace.count("blastn.cells", sum(len(q) * len(t) for q, t in zip(q_rows, t_rows)))
 
+    sharded = mesh is not None and mesh.size > 1
     with trace.span("blastn.sw"):
-        out = _batched_sw(q_rows, t_rows, submat, gap_open, gap_extend,
-                          encoding.N, device=device, mesh=mesh)
+        if sharded:
+            out = _batched_sw(q_rows, t_rows, submat, gap_open, gap_extend,
+                              encoding.N, device=device, mesh=mesh)
+            score = out[0] if out is not None else np.zeros(0, np.float32)
+        else:
+            with trace.span("blastn.score"):
+                score = _window_scores(q_codes, [m[0] for m in meta], t_rows, submat,
+                                       gap_open, gap_extend, dev)
+            trace.count("blastn.score_pairs", len(meta))
+        lam, K = _NT_LK
+        bits = _bitscore(score, lam, K)
+        m_total = float(sum(len(q.seq) for q in queries)) or 1.0
+        n_total = float(sum(len(s.seq) for s in subjects)) or 1.0
+        evalues = _evalue(bits, m_total, n_total)
+        kept = np.flatnonzero(evalues <= BLASTN_EVALUE)
+        if sharded:
+            paths = [f[kept] for f in out[1:]] if out is not None else []
+        else:
+            trace.count("blastn.path_pairs", len(kept))
+            # a row's fields do not depend on the rows batched with it
+            out = _batched_sw([q_rows[i] for i in kept], [t_rows[i] for i in kept], submat,
+                              gap_open, gap_extend, encoding.N, device=device)
+            paths = out[1:] if out is not None else []
     rows = []
     with trace.span("blastn.frame"):
-        if out is not None:
-            score, qf, qt, tf, tt, nid, ncol, ngo, ngc = out
-            lam, K = _NT_LK
-            bits = _bitscore(score, lam, K)
-            m_total = float(sum(len(q.seq) for q in queries)) or 1.0
-            n_total = float(sum(len(s.seq) for s in subjects)) or 1.0
-            evalues = _evalue(bits, m_total, n_total)
-            for i, (qi, si, strand, lo) in enumerate(meta):
-                if evalues[i] > BLASTN_EVALUE:
-                    continue
-                ncols = max(int(ncol[i]), 1)
-                clen = len(subjects[si].seq)
-                a = lo + int(tf[i])
-                b = lo + int(tt[i])
-                if strand == 1:
-                    s_start, s_end = a + 1, b + 1
-                else:
-                    s_start, s_end = clen - a, clen - b  # start > end
-                rows.append(
-                    dict(
-                        qseq=queries[qi].id, sseq=subjects[si].id,
-                        ident=100.0 * int(nid[i]) / ncols,
-                        length=ncols, mismatch=ncols - int(nid[i]) - int(ngc[i]),
-                        gap=int(ngo[i]),
-                        qstart=int(qf[i]) + 1, qend=int(qt[i]) + 1,
-                        sstart=s_start, send=s_end,
-                        evalue=float(evalues[i]), score=float(bits[i]),
-                    )
+        for k, i in enumerate(kept):
+            qi, si, strand, lo = meta[i]
+            qf, qt, tf, tt, nid, ncol, ngo, ngc = (int(f[k]) for f in paths)
+            ncols = max(ncol, 1)
+            clen = len(subjects[si].seq)
+            a = lo + tf
+            b = lo + tt
+            if strand == 1:
+                s_start, s_end = a + 1, b + 1
+            else:
+                s_start, s_end = clen - a, clen - b  # start > end
+            rows.append(
+                dict(
+                    qseq=queries[qi].id, sseq=subjects[si].id,
+                    ident=100.0 * nid / ncols,
+                    length=ncols, mismatch=ncols - nid - ngc,
+                    gap=ngo,
+                    qstart=qf + 1, qend=qt + 1,
+                    sstart=s_start, send=s_end,
+                    evalue=float(evalues[i]), score=float(bits[i]),
                 )
+            )
+        if meta:
             trace.count("blastn.rows", len(meta))
             trace.count("blastn.rows_cut", len(meta) - len(rows))
     return pd.DataFrame(rows, columns=OUTFMT6)

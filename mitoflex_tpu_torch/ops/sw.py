@@ -28,6 +28,13 @@ length, change no result (their cells are masked to 0), so the plain
 version runs ``max(t_lens)`` steps over ``max(q_lens)`` columns and the
 kernel stops each row at its own lengths.
 
+``sw_scores`` gives the score alone, of pairs that share a few queries
+and whose targets lie end to end: on a card one launch of the score-only
+kernel of ``csrc/sw_score.cu`` for every pair, its plain version
+``sw_scores_plain`` (the same loop without the path fields) on the CPU.
+blastn scores every pair with it and traces paths only where a row passes
+its e-value cut.
+
 Gap convention: a gap of length g costs gap_open + (g-1)*gap_extend.
 """
 
@@ -289,3 +296,213 @@ def sw_align(
 
 # kernel launches since the last reset (a plain counter, never reset here)
 sw_align.launches = 0
+
+
+# --------------------------------------------------------------- score only
+# the score kernel's (csrc/sw_score.cu) limits: letters of a table; the
+# bound on |entries|, gap costs and scores (float32 holds every integer
+# below it, so a score is sw_align's bit for bit); warps a block; and the
+# scratch a call may take (the grid shrinks to stay under it)
+SCORE_MAX_K = 32
+SCORE_LIMIT = 1 << 24
+SCORE_WARPS = 8
+SCORE_SCRATCH_BYTES = 1 << 30
+# int32 operations a cell (the kernel's note): its bound's numerator
+SCORE_OPS_PER_CELL = 10
+
+
+def _score_batch(q, ql, t, tl, sub, gap_open, gap_extend) -> torch.Tensor:
+    """``sw_align_plain``'s recurrence on padded rows without the path
+    fields: each row's best H, the same float32 values."""
+    dev = q.device
+    B = q.shape[0]
+    Lq = max(int(ql.max()) if B else 0, 1)
+    Lt = int(tl.max()) if B else 0
+    K = sub.shape[0]
+    jcol = torch.arange(Lq, device=dev)
+    q_in = jcol < ql[:, None]
+    spre = sub[q[:, :Lq].to(torch.int64).clamp(0, K - 1)]      # [B, Lq, K]
+    ext_ramp = gap_extend * jcol.to(torch.int32).to(torch.float32)
+    H = torch.zeros((B, Lq), device=dev)
+    E = torch.full((B, Lq), NEG, device=dev)
+    best = torch.zeros((B, Lq), device=dev)
+    tcodes = t.to(torch.int64).clamp(0, K - 1)
+    for s in range(Lt):
+        sc = torch.gather(spre, 2, tcodes[:, s][:, None, None].expand(B, Lq, 1))[..., 0]
+        valid = q_in & (s < tl)[:, None]
+        sc = torch.where(valid, sc, NEG)
+        E = torch.maximum(H - gap_open, E - gap_extend)
+        Hp = torch.maximum(_shr(H, 0.0) + sc, E)
+        cm = torch.cummax(Hp + ext_ramp, -1).values
+        Fv = _shr(cm, NEG) - ext_ramp - (gap_open - gap_extend)
+        H = torch.where(valid, torch.maximum(Fv, Hp).clamp(min=0.0), 0.0)
+        best = torch.maximum(best, H)
+    return best.max(1).values
+
+
+def sw_scores_plain(
+    queries: torch.Tensor,    # [Q, Lq] int8 symbol codes
+    q_lens: torch.Tensor,     # [Q]
+    q_index: torch.Tensor,    # [B]: each pair's query
+    targets: torch.Tensor,    # [T] int8: the pairs' targets end to end
+    t_offsets: torch.Tensor,  # [B + 1]
+    submat,
+    gap_open: float = 11.0,
+    gap_extend: float = 1.0,
+    batch: int = 64,
+) -> torch.Tensor:
+    """Best local score of pair b, query ``q_index[b]`` (its length
+    ``q_lens`` clamped to [0, Lq]) against ``targets[t_offsets[b] :
+    t_offsets[b + 1]]``: float32 [B], equal bit for bit to ``sw_align``'s
+    ``score`` on the same rows. Pairs go ``batch`` at a time through
+    ``sw_align_plain``'s loop over target positions, without its path
+    fields. ValueError for an index or offset out of range."""
+    dev = queries.device
+    Q, Lq = queries.shape
+    qi = [int(i) for i in q_index.tolist()]
+    offs = [int(o) for o in t_offsets.tolist()]
+    if len(offs) != len(qi) + 1 or any(not 0 <= i < Q for i in qi) \
+            or any(b < a for a, b in zip(offs, offs[1:])) \
+            or (offs and not 0 <= offs[0] <= offs[-1] <= targets.numel()):
+        raise ValueError("sw_scores_plain: a query index or target offset out of range")
+    sub = torch.as_tensor(submat, dtype=torch.float32, device=dev)
+    ql_all = q_lens.to(device=dev, dtype=torch.int64).clamp(0, Lq)
+    out = torch.zeros(len(qi), dtype=torch.float32, device=dev)
+    for b0 in range(0, len(qi), batch):
+        rows = range(b0, min(b0 + batch, len(qi)))
+        idx = torch.tensor([qi[i] for i in rows], dtype=torch.int64, device=dev)
+        tl = [offs[i + 1] - offs[i] for i in rows]
+        t = torch.zeros((len(rows), max(max(tl), 1)), dtype=torch.int8, device=dev)
+        for r, i in enumerate(rows):
+            t[r, : tl[r]] = targets[offs[i]: offs[i + 1]]
+        out[b0: b0 + len(rows)] = _score_batch(
+            queries[idx], ql_all[idx], t, torch.tensor(tl, device=dev), sub, gap_open,
+            gap_extend)
+    return out
+
+
+def score_inputs(queries: torch.Tensor, q_lens: torch.Tensor, q_index: torch.Tensor,
+                 targets: torch.Tensor, t_offsets: torch.Tensor, submat, gap_open: float,
+                 gap_extend: float) -> tuple:
+    """The score kernel's arguments, or ValueError naming what it does not
+    take: int8 queries [Q >= 1, Lq] and targets [T], integer q_lens [Q],
+    q_index [B] and t_offsets [B + 1], all contiguous on one device; a
+    symmetric [K, K] table of integers, K <= SCORE_MAX_K, read on the host
+    (a card tensor is copied back); integer gap costs with 0 <= extend <=
+    open; entries and costs below SCORE_LIMIT in magnitude, and the largest
+    entry times Lq too, so that no score reaches it. Returns q_lens int32
+    (clamped to [0, Lq]), q_index and t_offsets int64, the table as an
+    int32 tensor there, the gap costs, and the compare form (flag, match,
+    mismatch): the nucleotide table's shape, a match score on the diagonal
+    but for the last letter and one negative score elsewhere."""
+    dev = queries.device
+    for name, x, dim in (("queries", queries, 2), ("targets", targets, 1)):
+        if x.dim() != dim or x.dtype != torch.int8 or not x.is_contiguous() \
+                or x.device != dev:
+            raise ValueError(f"sw_scores: {name} must be a contiguous int8 tensor of "
+                             f"{dim} dimensions on {dev}, got {x.dtype} {list(x.shape)} "
+                             f"on {x.device}")
+    Q, Lq = queries.shape
+    if Q < 1:
+        raise ValueError("sw_scores: no queries")
+    B = q_index.shape[0] if q_index.dim() == 1 else -1
+    ints = []
+    for name, x, n in (("q_lens", q_lens, Q), ("q_index", q_index, B),
+                       ("t_offsets", t_offsets, B + 1)):
+        if x.dtype.is_floating_point or x.dtype.is_complex or x.dtype == torch.bool \
+                or x.dim() != 1 or x.shape[0] != n or x.device != dev:
+            raise ValueError(f"sw_scores: {name} must be an integer tensor [{n}] on {dev}, "
+                             f"got {x.dtype} {list(x.shape)} on {x.device}")
+        ints.append(x)
+    table = np.asarray(submat.cpu() if isinstance(submat, torch.Tensor) else submat,
+                       dtype=np.float64)
+    K = table.shape[0] if table.ndim == 2 else 0
+    if table.ndim != 2 or table.shape[1] != K or not 1 <= K <= SCORE_MAX_K:
+        raise ValueError(f"sw_scores: submat must be a square [K, K] matrix, K <= "
+                         f"{SCORE_MAX_K}, got {list(table.shape)}")
+    if not np.array_equal(table, table.T):
+        raise ValueError("sw_scores: submat must be symmetric (the kernel picks which "
+                         "side lies along its lanes)")
+    costs = np.array([gap_open, gap_extend], np.float64)
+    if not (np.array_equal(table, np.rint(table)) and np.array_equal(costs, np.rint(costs))):
+        raise ValueError("sw_scores: submat and the gap costs must be integers")
+    if not 0 <= gap_extend <= gap_open < SCORE_LIMIT:
+        raise ValueError(f"sw_scores: gap costs must hold 0 <= extend <= open < "
+                         f"{SCORE_LIMIT}, got open {gap_open}, extend {gap_extend}")
+    if np.abs(table).max() >= SCORE_LIMIT or max(table.max(), 0) * Lq >= SCORE_LIMIT:
+        raise ValueError(f"sw_scores: submat entries and the best possible score (the "
+                         f"largest entry x Lq {Lq}) must stay below {SCORE_LIMIT}")
+    diag = np.eye(K, dtype=bool)
+    diag[K - 1, K - 1] = False
+    match, mismatch = table[0, 0], table[K - 1, K - 1]
+    compare = K > 1 and mismatch < 0 and np.array_equal(
+        table, np.where(diag, match, mismatch))
+    return (ints[0].to(torch.int32).clamp(0, Lq).contiguous(),
+            ints[1].to(torch.int64).contiguous(), ints[2].to(torch.int64).contiguous(),
+            torch.from_numpy(table.astype(np.int32)).to(dev), int(gap_open), int(gap_extend),
+            (int(compare), int(match), int(mismatch)))
+
+
+def _score_blocks(dev) -> int:
+    """Blocks of the score kernel resident on card ``dev`` at once."""
+    blocks = _score_blocks.cache.get(dev.index)
+    if blocks is None:
+        with torch.cuda.device(dev):
+            blocks = kernels.library().mfx_sw_scores_blocks()
+        if blocks < 1:
+            raise RuntimeError("sw_scores: the card's occupancy query failed")
+        _score_blocks.cache[dev.index] = blocks
+    return blocks
+
+
+_score_blocks.cache = {}
+
+
+def sw_scores(
+    queries: torch.Tensor,    # [Q, Lq] int8 symbol codes
+    q_lens: torch.Tensor,     # [Q] integer
+    q_index: torch.Tensor,    # [B] integer: each pair's query
+    targets: torch.Tensor,    # [T] int8: the pairs' targets end to end
+    t_offsets: torch.Tensor,  # [B + 1] integer
+    submat,                   # [K, K] symmetric integer scores
+    gap_open: float = 11.0,
+    gap_extend: float = 1.0,
+) -> torch.Tensor:
+    """Best local score of each pair: float32 [B], bit-equal to ``sw_align``'s
+    ``score`` for query ``q_index[b]`` against ``targets[t_offsets[b] :
+    t_offsets[b + 1]]``. Tensors on a card: the arguments checked
+    (:func:`score_inputs`), then one launch of the kernel of
+    ``csrc/sw_score.cu`` for every pair, most cells first; no host sync; a
+    pair whose query index or offsets are out of range scores NaN. On the
+    CPU: :func:`sw_scores_plain`."""
+    dev = queries.device
+    if dev.type == "cpu":
+        return sw_scores_plain(queries, q_lens, q_index, targets, t_offsets, submat,
+                               gap_open, gap_extend)
+    if dev.type != "cuda":
+        raise ValueError(f"sw_scores: unsupported device {dev}")
+    ql, qi, offs, sub, go, ge, (cmp, match, mismatch) = score_inputs(
+        queries, q_lens, q_index, targets, t_offsets, submat, gap_open, gap_extend)
+    Q, Lq = queries.shape
+    B = qi.shape[0]
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    if B:
+        cells = ql[qi.clamp(0, Q - 1)].to(torch.int64) * (offs[1:] - offs[:-1]).clamp(min=0)
+        order = torch.argsort(cells, descending=True, stable=True)
+        blocks = min(_score_blocks(dev), -(-B // SCORE_WARPS),
+                     max(1, SCORE_SCRATCH_BYTES // (SCORE_WARPS * max(Lq, 1) * 8)))
+        scratch = torch.empty((blocks * SCORE_WARPS, Lq, 2), dtype=torch.int32, device=dev)
+        nxt = torch.zeros(1, dtype=torch.int32, device=dev)
+        err = kernels.launch(
+            dev, kernels.library().mfx_sw_scores, queries.data_ptr(), ql.data_ptr(),
+            qi.data_ptr(), targets.data_ptr(), offs.data_ptr(), order.data_ptr(),
+            sub.data_ptr(), sub.shape[0], Q, B, Lq, targets.numel(), go, ge, cmp, match,
+            mismatch, scratch.data_ptr(), blocks, nxt.data_ptr(), out.data_ptr())
+        if err:
+            kernels.check(err, "sw_scores")
+        sw_scores.launches += 1
+    return out
+
+
+# kernel launches since the last reset (a plain counter, never reset here)
+sw_scores.launches = 0

@@ -1102,6 +1102,296 @@ def check_sw(device, card_size: bool = True) -> Tuple[int, int]:
     return n_cases, n_calls
 
 
+# ------------------------------------------------- Smith-Waterman scores
+# (name, queries [Q, Lq] int8, q_lens [Q], q_index [B], targets [T] int8,
+# t_offsets [B + 1], matrix, gap_open, gap_extend): the arguments of
+# ``ops.sw.sw_scores``
+ScoreCase = Tuple[str, np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+                  np.ndarray, float, float]
+# the merge's circle on the card (16,033 bases) and the draft's window law
+SW_SCORE_CIRCLE = 16033
+
+
+def _ends(rows) -> Tuple[np.ndarray, np.ndarray]:
+    """Rows end to end (int8) and their offsets."""
+    lens = [len(r) for r in rows]
+    cat = np.concatenate([np.asarray(r, np.int8) for r in rows]) if rows else \
+        np.zeros(0, np.int8)
+    return cat.astype(np.int8), np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+
+
+def score_case(case: SwCase) -> ScoreCase:
+    """An ``sw_cases`` case as ``sw_scores`` takes it: each pair its own
+    query, the targets cut to their lengths and laid end to end, the table
+    made symmetric (the port's BLOSUM62 differs from its transpose in one
+    pair of entries, which the score kernel refuses) by the smaller of
+    each pair."""
+    name, q, ql, t, tl, sub, go, ge = case
+    cat, offs = _ends([t[i, : max(int(n), 0)] for i, n in enumerate(tl)])
+    return (name, q, ql, np.arange(len(q), dtype=np.int64), cat, offs,
+            np.minimum(sub, sub.T), go, ge)
+
+
+def _revcomp(codes: np.ndarray) -> np.ndarray:
+    from ..io import encoding
+
+    return np.asarray(encoding.revcomp(codes), np.int8)
+
+
+def _merge_windows(rng: np.random.Generator, circle: np.ndarray, lens) -> list:
+    """Windows of the given lengths as the merge's blastn sees them: random
+    contigs, each fourth holding a mutated stretch of the circle, each
+    third on the minus strand, each fifth with a run of N codes."""
+    from ..io import encoding
+
+    out = []
+    for i, n in enumerate(lens):
+        w = rng.integers(0, 4, int(n)).astype(np.int8)
+        if i % 4 == 0 and n > 60:
+            k = int(rng.integers(50, min(int(n), 2000) + 1))
+            at = int(rng.integers(0, len(circle) - k))
+            piece = circle[at: at + k].copy()
+            piece[rng.integers(0, k, k // 30 + 1)] = rng.integers(0, 4, k // 30 + 1)
+            pos = int(rng.integers(0, int(n) - k + 1))
+            w[pos: pos + k] = piece
+        if i % 3 == 0:
+            w = _revcomp(w)
+        if i % 5 == 0 and n > 40:
+            at = int(rng.integers(0, int(n) - 20))
+            w[at: at + 17] = encoding.N
+        out.append(w)
+    return out
+
+
+def sw_score_cases(seed: int = 2033, card_size: bool = True) -> Iterator[ScoreCase]:
+    """Cases for ``sw_scores``: every ``sw_cases`` case; a 1,500-base query
+    against windows of 50 to 700 (the query along the stream) and the
+    reverse, 40 to 300-base queries against targets of 600 to 1,400 longer
+    than every query (the query streamed though it is the shorter side);
+    sides past one tile (512 columns) and past two, with N runs; empty rows;
+    pairs that score twice their length; a shared query set; and, with
+    ``card_size``, the merge's shape (the 16,033-base circle against 48
+    windows of 200 to 20,000, both strands, N runs) and the int32 extremes
+    (entries, gap costs and scores at the kernel's limits)."""
+    from ..io import encoding
+    from ..ops import sw
+
+    for case in sw_cases(card_size=False):
+        yield score_case(case)
+    rng = np.random.default_rng(seed)
+    nt, N = sw.nucleotide_matrix().astype(np.float32), encoding.N
+
+    def queries(rows):
+        q, ql = np.full((len(rows), max(max(len(r) for r in rows), 1)), N, np.int8), []
+        for i, r in enumerate(rows):
+            q[i, : len(r)] = r
+            ql.append(len(r))
+        return q, np.array(ql, np.int32)
+
+    big = rng.integers(0, 4, 1500).astype(np.int8)
+    wins = _merge_windows(rng, big, rng.integers(50, 701, 10))
+    q, ql = queries([big])
+    yield ("one 1,500-base query against windows of 50-700", q, ql,
+           np.zeros(len(wins), np.int64), *_ends(wins), nt, 7.0, 2.0)
+    small = [rng.integers(0, 4, int(n)).astype(np.int8) for n in rng.integers(40, 301, 6)]
+    tgts = []
+    for i, s in enumerate(small):
+        t = rng.integers(0, 4, int(rng.integers(600, 1401))).astype(np.int8)
+        at = int(rng.integers(0, len(t) - len(s)))
+        t[at: at + len(s)] = s if i % 2 else _revcomp(s)
+        tgts.append(t)
+    q, ql = queries(small)
+    yield ("queries of 40-300 against longer targets of 600-1,400", q, ql,
+           np.arange(len(small), dtype=np.int64), *_ends(tgts), nt, 7.0, 2.0)
+    a = rng.integers(0, 4, 1300).astype(np.int8)
+    b = np.concatenate([rng.integers(0, 4, 200), a[100:1100],
+                        rng.integers(0, 4, 150)]).astype(np.int8)
+    b[rng.integers(0, len(b), 40)] = rng.integers(0, 4, 40)
+    b[500:512] = N
+    q, ql = queries([a, b])
+    c = np.concatenate([a[:700], rng.integers(0, 4, 20), a[700:]]).astype(np.int8)
+    yield ("sides past one and two tiles, N runs", q, ql, np.array([0, 1, 0, 1], np.int64),
+           *_ends([b, a, c, _revcomp(c)]), nt, 11.0, 1.0)
+    q, ql = queries([a[:300], a[:0], a[:5]])
+    yield ("empty rows", q, ql, np.array([1, 0, 1, 2, 0], np.int64),
+           *_ends([a[:40], a[:0], a[:0], a[:5], a[:300]]), nt, 7.0, 2.0)
+    twin = [a[:n] for n in (1, 31, 32, 33, 128, 129, 511, 512, 513)]
+    q, ql = queries(twin)
+    yield ("pairs scoring twice their length", q, ql, np.arange(len(twin), dtype=np.int64),
+           *_ends(twin), nt, 7.0, 2.0)
+    shared = [rng.integers(0, 4, int(n)).astype(np.int8) for n in (900, 260, 610)]
+    idx = rng.integers(0, 3, 12)
+    wins = [np.concatenate([rng.integers(0, 4, int(rng.integers(0, 90))),
+                            shared[i][int(rng.integers(0, 100)):]]).astype(np.int8)
+            for i in idx]
+    q, ql = queries(shared)
+    yield ("a shared query set", q, ql, idx.astype(np.int64), *_ends(wins), nt, 7.0, 2.0)
+    if card_size:
+        circle = rng.integers(0, 4, SW_SCORE_CIRCLE).astype(np.int8)
+        circle[7000:7030] = N
+        lens = np.clip(np.rint(np.exp(rng.normal(np.log(1000), 1.0, 48))), 200, 20000)
+        lens[:3] = (20000, 16034, 200)
+        wins = _merge_windows(rng, circle, lens)
+        q, ql = queries([circle])
+        yield (f"merge shape: a {SW_SCORE_CIRCLE}-base circle against 48 windows of "
+               f"200-20,000", q, ql, np.zeros(len(wins), np.int64), *_ends(wins), nt, 7.0, 2.0)
+        top = sw.SCORE_LIMIT // 16384 - 1
+        ext = nt.copy()
+        ext[ext > 0] = top
+        ext[ext < 0] = -(sw.SCORE_LIMIT - 1)
+        long = rng.integers(0, 4, 16384).astype(np.int8)
+        q, ql = queries([long])
+        yield ("int32 extremes: entries, gap costs and the best score near 2^24", q, ql,
+               np.zeros(3, np.int64), *_ends([long, long[:9000], _revcomp(long[5:700])]),
+               ext, float(sw.SCORE_LIMIT - 1), 1.0)
+        ext2 = nt.copy()
+        ext2[ext2 > 0] = 1000
+        yield ("int32 extremes: gap costs of 2^24 - 1", q, ql, np.zeros(2, np.int64),
+               *_ends([long[:3000], long[2000:9000]]), ext2, float(sw.SCORE_LIMIT - 1),
+               float(sw.SCORE_LIMIT - 1))
+
+
+def score_tensors(case: ScoreCase, device) -> tuple:
+    """A score case's (queries, q_lens, q_index, targets, t_offsets,
+    matrix) as tensors on ``device`` and its gap costs."""
+    import torch
+
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                 for x in case[1:7]), case[7], case[8]
+
+
+def sw_scores_model(queries, q_lens, q_index, targets, t_offsets, submat, gap_open,
+                    gap_extend) -> np.ndarray:
+    """A numpy model of csrc/sw_score.cu's order of work: per pair, the
+    orientation (the streamed side never a target longer than Lq), the
+    tiles (16, 8 or 4 columns a lane; columns past the end never match or
+    score -2^24), and in each tile the 32 lanes' wavefront step by step,
+    the shuffles' values, the streamed codes and the left boundary read in
+    32-position chunks two ahead of use (captured when loaded), the right
+    boundary written by the last lane into a scratch slice of Lq rows that
+    starts each pair as garbage. A lane's F chain across its columns is
+    taken in closed form (a prefix maximum: the same integers). float32
+    [B], the kernel's answers."""
+    lanes, neg, limit = 32, -(1 << 30), 1 << 24   # kLanes, kNeg, kLimit
+    sub = np.asarray(submat, np.int64)
+    K = sub.shape[0]
+    diag = np.eye(K, dtype=bool)
+    diag[K - 1, K - 1] = False
+    match, mismatch = int(sub[0, 0]), int(sub[K - 1, K - 1])
+    compare = K > 1 and mismatch < 0 and np.array_equal(sub, np.where(diag, match, mismatch))
+    tab = np.concatenate([sub, np.full((1, K), -limit, np.int64)])
+    go, ge = int(gap_open), int(gap_extend)
+    Q, Lq = queries.shape
+    lane = np.arange(lanes)
+    garbage = np.random.default_rng(0)
+    out = np.zeros(len(q_index), np.float32)
+
+    def sweep(cols, rows, col0, C, first, last, scr):
+        ncols, nrows = len(cols), len(rows)
+        j = col0 + lane[:, None] * C + np.arange(C)[None, :]
+        q = np.where(j < ncols, np.clip(cols[np.minimum(j, max(ncols - 1, 0))], 0, K - 1), -1)
+        code = np.where(q == K - 1, -1, q) if compare else np.where(q < 0, K, q)
+        xs = np.clip(rows.astype(np.int64), 0, K - 1)
+        if compare:
+            xs = np.where(xs == K - 1, -2, xs)
+
+        def chunk(src, m, fill):
+            r = m * lanes + lane
+            ok = r < nrows
+            return np.where(ok[:, None] if src.ndim == 2 else ok,
+                            src[np.minimum(r, nrows - 1)], fill)
+
+        H = np.zeros((lanes, C), np.int64)
+        E = np.full((lanes, C), neg, np.int64)
+        best = np.zeros(lanes, np.int64)
+        x = np.zeros(lanes, np.int64)
+        fout = np.full(lanes, neg, np.int64)
+        hout = np.zeros(lanes, np.int64)
+        hprev = np.zeros(lanes, np.int64)
+        xcur, xnxt = chunk(xs, 0, 0), chunk(xs, 1, 0)
+        bfill = np.array([neg, 0])
+        bcur = bnxt = np.tile(bfill, (lanes, 1))
+        if not first:
+            bcur, bnxt = chunk(scr, 0, bfill), chunk(scr, 1, bfill)
+        for s in range(nrows + lanes - 1):
+            t = s - lane
+            up1 = lambda v: np.concatenate([v[:1], v[:-1]])  # __shfl_up_sync(v, 1)
+            xu, fu, hu = up1(x), up1(fout), up1(hout)
+            x0 = xcur[s & (lanes - 1)]
+            f0, h0 = (neg, 0) if first else bcur[s & (lanes - 1)]
+            x = np.where(lane == 0, x0, xu)
+            act = (t >= 0) & (t < nrows)
+            fin = np.where(lane == 0, f0, fu)
+            sc = np.where(code == x[:, None], match, mismatch) if compare \
+                else tab[code, x[:, None]]
+            e = np.maximum(E - ge, H - go)
+            hp = np.maximum(np.concatenate([hprev[:, None], H[:, :-1]], 1) + sc, e)
+            # F entering each column: the lane's chain f = max(f - ext,
+            # H' - open) in closed form
+            ramp = ge * np.arange(C + 1)
+            cm = np.maximum.accumulate(hp - go + ramp[1:], axis=1)
+            F = np.maximum(fin[:, None] - ramp,
+                           np.concatenate([np.full((lanes, 1), neg), cm], 1) - ramp)
+            h = np.maximum(np.maximum(hp, F[:, :C]), 0)
+            best = np.where(act, np.maximum(best, h.max(1)), best)
+            E = np.where(act[:, None], e, E)
+            H = np.where(act[:, None], h, H)
+            fout = np.where(act, F[:, C], fout)
+            hout = np.where(act, H[:, C - 1], hout)
+            hprev = np.where(act, np.where(lane == 0, h0, hu), hprev)
+            if not last and act[lanes - 1]:
+                scr[t[lanes - 1]] = (fout[lanes - 1], hout[lanes - 1])
+            if (s & (lanes - 1)) == lanes - 1:
+                m = (s >> 5) + 2
+                xcur, xnxt = xnxt, chunk(xs, m, 0)
+                if not first:
+                    bcur, bnxt = bnxt, chunk(scr, m, bfill)
+        return int(best.max())
+
+    offs = np.asarray(t_offsets, np.int64)
+    for b, qi in enumerate(np.asarray(q_index, np.int64)):
+        qlen = int(np.clip(q_lens[qi], 0, Lq))
+        ts = np.asarray(targets[offs[b]: offs[b + 1]], np.int64)
+        qs = np.asarray(queries[qi, :qlen], np.int64)
+        stream_q = qlen >= len(ts) or len(ts) > Lq
+        cols, rows = (ts, qs) if stream_q else (qs, ts)
+        assert len(rows) <= Lq
+        scr = garbage.integers(-2**31, 2**31, (max(Lq, 1), 2))
+        best, col0 = 0, 0
+        while col0 < len(cols) and len(rows):
+            rem = len(cols) - col0
+            C = 16 if rem > 8 * lanes else 8 if rem > 4 * lanes else 4
+            best = max(best, sweep(cols, rows, col0, C, col0 == 0, rem <= C * lanes, scr))
+            col0 += C * lanes
+        out[b] = best
+    return out
+
+
+
+def check_sw_scores(device, card_size: bool = True) -> Tuple[int, int]:
+    """Every case of :func:`sw_score_cases` through ``ops.sw.sw_scores`` on
+    ``device`` (a card: the kernel), held against ``sw_scores_plain`` on the
+    same tensors bit for bit, and against ``sw_align_plain``'s score on the
+    cases small enough for it. Raises AssertionError on the first
+    difference; returns the numbers of cases and pairs."""
+    import torch
+
+    from ..ops import sw
+
+    n_cases = n_pairs = 0
+    for case in sw_score_cases(card_size=card_size):
+        args, go, ge = score_tensors(case, device)
+        want = sw.sw_scores_plain(*args, go, ge)
+        got = sw.sw_scores(*args, go, ge)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            bad = int(torch.nonzero(got != want)[0, 0])
+            raise AssertionError(f"sw_scores differs from its plain version: {case[0]}, "
+                                 f"pair {bad}: {float(got[bad])} vs {float(want[bad])}")
+        n_cases += 1
+        n_pairs += got.numel()
+    return n_cases, n_pairs
+
+
 # ------------------------------------------------------- banded CYK cases
 # bits: float32 prefix sums in another order (the JAX package's, the plain
 # version's on a card) differ in their last bits; see cyk_score_tol

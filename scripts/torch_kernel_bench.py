@@ -3,7 +3,7 @@ sort, C1 banded CYK, V1 and V2 Viterbi passes, S1 Smith-Waterman, G1
 genewise) on one GPU.
 
     python3 scripts/torch_kernel_bench.py [--repo DIR] [--check] [--time]
-                                          [--kernels K1,K2,K3,K4,C1,V1,V2,S1,G1]
+                                          [--kernels K1,K2,K3,K4,C1,V1,V2,S1,S1s,G1]
                                           [--shapes FILE] [--viterbi-calls FILE]
                                           [--layouts] [--label NAME] [--out FILE]
 
@@ -62,7 +62,15 @@ design's strips one after another), the operations bound at 67 TFLOP/s,
 and the checkout's layout; ``--layouts`` times each layout the chooser
 weighs at the shape too; with ``--check``, ``kernel_cases.check_sw`` and
 ``check_genewise`` on the card first and every timed call bit-equal to
-the plain version. The card's name and power limit are printed first.
+the plain version. S1s (``sw_scores``, the score kernel), when
+``--kernels`` names it, is timed in one call over the partial merge's
+blastn pairs on a seeded draft of the ``scaf.draft`` law (``draft_pairs``:
+about 10,000 windows against the 16,173-base circle), beside its int32
+bound, the path kernel on the same pairs as blastn sent them before and the
+plain version on 16 of them (``time_scores``); with ``--check``,
+``kernel_cases.check_sw_scores`` on the card first, and every score
+bit-equal to the path kernel's. The card's name and power limit are
+printed first.
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -544,6 +553,116 @@ def time_dp(dev, label: str, which, every_layout: bool, check: bool, out_path=No
                  bit_equal=want is not None)
 
 
+# S1s, the score kernel at the partial merge's pairs on a draft of the
+# scaf.draft traffic's law: 10 Mbp of random contigs of log-normal length
+# (median 1 kb, sigma 1.0, clipped to 200-20,000) and the 16,033-base
+# circle with its first 140 bases repeated at its end, seeded as blastn
+# seeds them (11-mers, a window 50 bases wider than the seeds' diagonals)
+S1S_DRAFT = (10_000_000, 1000.0, 1.0, (200, 20000), 16033, 140)
+# int32 operations a cell (ops/sw.py SCORE_OPS_PER_CELL) at the H100's
+# int32 rate: 132 SMs x 64 lanes x 1.98 GHz
+INT32_OPS_PER_MS = 132 * 64 * 1.98e6
+S1S_REPEATS = 5
+S1S_PLAIN_PAIRS = 16
+
+
+def draft(seed: int = DP_SEED):
+    """(the circle, the nuclear contigs) of one seeded draft (S1S_DRAFT) as
+    FASTA records."""
+    from mitoflex_tpu_torch.io.fasta import FastaRecord
+
+    total, median, sigma, (lo, hi), circle_len, overlap = S1S_DRAFT
+    rng = np.random.default_rng(seed)
+    lens, held = [], 0
+    while held < total:
+        n = int(np.clip(np.rint(np.exp(rng.normal(np.log(median), sigma))), lo, hi))
+        n = min(n, total - held) if total - held >= lo else n
+        lens.append(n)
+        held += n
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, held)].tobytes().decode()
+    ends = np.cumsum(lens)
+    subjects = [FastaRecord(f"k141_{i}", seq[e - n: e], {"flag": 0, "multi": 20.0, "len": n})
+                for i, (e, n) in enumerate(zip(ends, lens))]
+    g = "".join("ACGT"[int(k)] for k in rng.integers(0, 4, circle_len))
+    circle = FastaRecord("circle", g + g[:overlap], {"flag": 1, "multi": 400.0,
+                                                    "len": circle_len + overlap})
+    return circle, subjects
+
+
+def draft_pairs(dev, seed: int = DP_SEED):
+    """(queries' codes, each pair's query, each pair's window) of the
+    partial merge's blastn on ``draft(seed)``, its windows from the
+    checkout's own seeding (``blast.blastn_windows``)."""
+    from mitoflex_tpu_torch.models import blast
+
+    circle, subjects = draft(seed)
+    q_codes, _, t_rows, meta = blast.blastn_windows([circle], subjects, 11, 1, 50, True, dev)
+    return q_codes, [m[0] for m in meta], t_rows
+
+
+def time_scores(dev, label: str, check: bool, out_path=None) -> None:
+    """S1s: ``sw_scores`` on every pair of ``draft_pairs`` in one call (median,
+    min and max of S1S_REPEATS calls, the launches a call, the bound), the
+    path kernel on the same pairs as blastn sent them before (``_batched_sw``:
+    64 pairs a launch, each read back; one pass, host clock ending in a
+    synchronise), and the plain version on S1S_PLAIN_PAIRS of them spread
+    over the list; with ``check``, every score bit-equal to the path
+    kernel's and the sample's to the plain version's."""
+    from mitoflex_tpu_torch.io import encoding
+    from mitoflex_tpu_torch.models import blast
+    from mitoflex_tpu_torch.ops import sw
+
+    emit = _emitter(label, out_path)
+    if not hasattr(sw, "sw_scores"):
+        print(f"{label}: no sw_scores in this checkout", flush=True)
+        return
+    q_codes, qis, t_rows = draft_pairs(dev)
+    sub = sw.nucleotide_matrix()
+    qs, ql = blast._pad_rows(list(q_codes), encoding.N)
+    ends = np.cumsum([len(t) for t in t_rows])
+    args = (torch.from_numpy(qs).to(dev), torch.from_numpy(ql).to(dev),
+            torch.tensor(qis, dtype=torch.int64, device=dev),
+            torch.from_numpy(np.concatenate(t_rows).astype(np.int8)).to(dev),
+            torch.from_numpy(np.concatenate([[0], ends]).astype(np.int64)).to(dev))
+    cells = int(sum(len(q_codes[q]) * len(t) for q, t in zip(qis, t_rows)))
+    before = sw.sw_scores.launches
+    got = sw.sw_scores(*args, sub, 7.0, 2.0)
+    torch.cuda.synchronize()
+    launches = sw.sw_scores.launches - before
+    times = cuda_times(lambda: sw.sw_scores(*args, sub, 7.0, 2.0), S1S_REPEATS)
+    ms = float(np.median(times))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = blast._batched_sw([q_codes[q] for q in qis], t_rows, sub, 7.0, 2.0, encoding.N,
+                             device=dev)
+    torch.cuda.synchronize()
+    path_ms = (time.perf_counter() - t0) * 1e3
+    pick = np.linspace(0, len(qis) - 1, S1S_PLAIN_PAIRS).astype(np.int64)
+    cut = [t_rows[i] for i in pick]
+    sample = (args[0], args[1], args[2][pick],
+              torch.from_numpy(np.concatenate(cut).astype(np.int8)).to(dev),
+              torch.from_numpy(np.concatenate([[0], np.cumsum([len(t) for t in cut])])
+                               .astype(np.int64)).to(dev))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    plain = sw.sw_scores_plain(*sample, sub, 7.0, 2.0)
+    end.record()
+    end.synchronize()
+    if check:
+        if not np.array_equal(got.cpu().numpy().view(np.int32), path[0].view(np.int32)):
+            raise AssertionError("S1s: sw_scores differs from sw_align's score on the draft")
+        if not torch.equal(got[torch.from_numpy(pick).to(dev)].view(torch.int32),
+                           plain.view(torch.int32)):
+            raise AssertionError("S1s: sw_scores differs from its plain version on the draft")
+    bound = cells * sw.SCORE_OPS_PER_CELL / INT32_OPS_PER_MS
+    emit(kernel="S1s", what="draft pairs", pairs=len(qis), cells=cells, ms=ms,
+         min_ms=min(times), max_ms=max(times), launches_a_call=launches, bound_ms=bound,
+         bound_share=bound / ms, gcups=cells / ms / 1e6, path_ms=path_ms,
+         path_launches=-(-len(qis) // 64), plain_pairs=len(pick),
+         plain_cells=int(sum(len(q_codes[qis[i]]) * len(t_rows[i]) for i in pick)),
+         plain_ms=start.elapsed_time(end), bit_equal=check)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
@@ -551,7 +670,7 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--kernels", default="K1,K2,K3,K4",
-                    help="comma-separated subset of K1,K2,K3,K4,C1,V1,V2,S1,G1 to check "
+                    help="comma-separated subset of K1,K2,K3,K4,C1,V1,V2,S1,S1s,G1 to check "
                          "and time")
     ap.add_argument("--layouts", action="store_true",
                     help="time S1 and G1 at every layout their choosers weigh too")
@@ -591,6 +710,11 @@ def main() -> int:
 
         print(f"check: S1 bit-equal to its plain version on the card: "
               f"{kernel_cases.check_sw(dev)} (cases, calls)", flush=True)
+    if args.check and "S1s" in which:
+        from mitoflex_tpu_torch.testing import kernel_cases
+
+        print(f"check: S1s bit-equal to its plain version on the card: "
+              f"{kernel_cases.check_sw_scores(dev)} (cases, pairs)", flush=True)
     if args.check and "G1" in which:
         from mitoflex_tpu_torch.testing import kernel_cases
 
@@ -621,6 +745,8 @@ def main() -> int:
             time_viterbi(dev, args.label, which, args.viterbi_calls, args.out)
         if set(which) & {"S1", "G1"}:
             time_dp(dev, args.label, which, args.layouts, args.check, args.out)
+        if "S1s" in which:
+            time_scores(dev, args.label, args.check, args.out)
     return 0
 
 

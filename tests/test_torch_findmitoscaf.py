@@ -22,6 +22,7 @@ the score's absolute error).
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from mitoflex_tpu.config import SearchConfig
 from mitoflex_tpu.io import fastq
@@ -35,8 +36,11 @@ from mitoflex_tpu.stages import merge as jax_merge
 from mitoflex_tpu_torch.models import blast as port_blast
 from mitoflex_tpu_torch.models import nhmmer as port_nhmmer
 from mitoflex_tpu_torch.ops import mapper as port_mapper
+from mitoflex_tpu_torch.ops import sw as port_sw
+from mitoflex_tpu_torch.parallel import mesh as port_mesh
 from mitoflex_tpu_torch.stages import findmitoscaf as port_fms
 from mitoflex_tpu_torch.stages import merge as port_merge
+from mitoflex_tpu_torch.testing import kernel_cases
 from mitoflex_tpu_torch.testing import synth as port_synth
 from tests import profile_fixture, synth
 
@@ -221,6 +225,116 @@ def test_blastn_seed_join_matches_the_subject_loop(monkeypatch, seed_bases):
     got = port_blast.blastn(queries, subjects, skip_self=True, device="cpu")
     assert len(want) >= 3
     pd.testing.assert_frame_equal(got, want)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread: the port's plain loops are many small eager ops,
+    which more threads only slow down beside the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _all_path(monkeypatch):
+    """blastn through its all-path route (every window aligned, the route a
+    mesh of several shards keeps) for the rest of a test: the reference for
+    the score-first route."""
+    real = port_blast.blastn
+    mesh = port_mesh.make_mesh((2,), device="cpu")
+
+    def blastn(*args, **kwargs):
+        return real(*args, **kwargs, mesh=mesh)
+
+    monkeypatch.setattr(port_blast, "blastn", blastn)
+    return real
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_blastn_score_first_frame_equals_the_all_path_route(monkeypatch):
+    """Exact, field for field: exact copies of circle stretches of 18-28
+    bases (rows just above and just below the 1e-5 cut over the subject
+    set), one on the minus strand, a planted true overlap and random
+    contigs that seed by chance; also in pieces of 3,000 window bases a
+    score launch."""
+    rng = np.random.default_rng(7)
+    circle = synth.random_genome(rng, 1500)
+    subjects = []
+    for i, n in enumerate(range(18, 29)):
+        at = 100 * i + 50
+        left = synth.random_genome(rng, 300)
+        right = synth.random_genome(rng, 300)
+        # flanks that mismatch the circle's next bases: the copy's score is 2n
+        left = left[:-1] + "ACGT"[("ACGT".index(circle[at - 1]) + 2) % 4]
+        right = "ACGT"[("ACGT".index(circle[at + n]) + 2) % 4] + right[1:]
+        seq = left + circle[at: at + n] + right
+        subjects.append(_contig(f"copy{n}", profile_fixture._rc(seq) if n == 25 else seq, 20.0))
+    subjects.append(_contig("ov", synth.random_genome(rng, 600) + circle[:85], 20.0))
+    subjects += [_contig(f"r{i}", synth.random_genome(rng, 900), 20.0) for i in range(12)]
+    queries = [_contig("circle", circle, 400.0)]
+    q_codes, _, t_rows, meta = port_blast.blastn_windows(queries, subjects, 11, 1, 50, True,
+                                                         "cpu")
+    sub = port_sw.nucleotide_matrix()
+    cat, offs = kernel_cases._ends(t_rows)
+    scores = port_sw.sw_scores_plain(*(torch.from_numpy(x) for x in (
+        np.stack(q_codes), np.array([len(circle)]), np.array([m[0] for m in meta]), cat, offs)),
+        sub, 7.0, 2.0).numpy()
+    n_total = sum(len(r.seq) for r in subjects)
+    evalues = port_blast._evalue(port_blast._bitscore(scores, *port_blast._NT_LK),
+                                 len(circle), n_total)
+    cut = port_blast.BLASTN_EVALUE
+    # a copy one base longer scores 2 more: 2^(-2 lambda / ln 2), 3.5 times
+    # less in e-value
+    assert ((evalues > cut) & (evalues <= 5 * cut)).any()
+    assert ((evalues <= cut) & (evalues >= cut / 5)).any()
+    assert len(meta) > 14
+    got = port_blast.blastn(queries, subjects, skip_self=True, device="cpu")
+    assert len(got) == int((evalues <= cut).sum()) >= 8
+    assert {"ov", "copy25"} <= set(got.sseq)
+    monkeypatch.setattr(port_blast, "_SCORE_BASES", 3000)
+    pieces = port_blast.blastn(queries, subjects, skip_self=True, device="cpu")
+    _all_path(monkeypatch)
+    want = port_blast.blastn(queries, subjects, skip_self=True, device="cpu")
+    pd.testing.assert_frame_equal(got, want)
+    pd.testing.assert_frame_equal(pieces, want)
+
+
+@pytest.mark.parametrize("overlap, joins", [
+    (lambda c: port_synth.chance_copy(c[:54]), 0),  # a chance row, 75% over 53 columns
+    (lambda c: c[:85], 1),                          # a true overlap of 85 bases
+], ids=["chance_row", "true_overlap"])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_merge_frames_equal_the_all_path_route(monkeypatch, overlap, joins):
+    """merge_partial on a draft and merge_sequences on a genome in two
+    overlapping pieces with a random contig: the same records and, call by
+    call, the same blastn frames as through the all-path route."""
+    picked, db = _draft(np.random.default_rng(4), overlap)
+    rng = np.random.default_rng(6)
+    g = synth.random_genome(rng, 1600)
+    pieces = [_contig("f1", g[:880], 100.0), _contig("f2", g[720:], 110.0),
+              _contig("x", synth.random_genome(rng, 400), 20.0)]
+    runs = []
+    for route in ("score first", "all path"):
+        frames = []
+        real = _all_path(monkeypatch) if route == "all path" else port_blast.blastn
+
+        def blastn(*args, real=port_blast.blastn, **kwargs):
+            frames.append(real(*args, **kwargs))
+            return frames[-1]
+
+        monkeypatch.setattr(port_merge.blast, "blastn", blastn)
+        got = port_merge.merge_partial(picked, db, 50, 50, 20000, device="cpu")
+        seqs = port_merge.merge_sequences(pieces, 50, 60, 20000, device="cpu")
+        runs.append((got, seqs, frames))
+        monkeypatch.setattr(port_merge.blast, "blastn", real)
+    (a, sa, fa), (b, sb, fb) = runs
+    assert a[2] == b[2] == joins
+    assert _records(a[0]) == _records(b[0]) and _records(a[1]) == _records(b[1])
+    assert _records(sa[0]) == _records(sb[0]) and sa[1] == sb[1] == 1
+    assert len(fa) == len(fb) >= 3
+    for x, y in zip(fa, fb):
+        pd.testing.assert_frame_equal(x, y)
 
 
 @pytest.mark.parametrize("merge_method", [2, 1])

@@ -414,7 +414,7 @@ def test_kernel_loader_needs_no_nvcc():
         assert {"-c", "-O3", "-std=c++17"} <= set(cmd)
         assert [os.path.basename(c) for c in cmd if c.endswith(".cu")] == [src]
     assert kernels.SOURCES == ("filter.cu", "merge.cu", "sort.cu", "viterbi.cu", "sw.cu",
-                               "cyk.cu", "genewise.cu")
+                               "sw_score.cu", "cyk.cu", "genewise.cu")
     link = kernels.link_command(["a.o", "b.o"], "libx.so")
     assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
     assert kernels._lib is None

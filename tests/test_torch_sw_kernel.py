@@ -265,3 +265,167 @@ def test_layouts_the_kernel_cannot_run_are_refused():
         == 2512 + good.warps * (8 * 8 * good.rows * 8 + 64)
     with pytest.raises(kernels.KernelLimitError, match="hand-off slots"):
         rp.choose(1 << 30, 1 << 21, True, port_sw.STEP_COST, "sw_align")
+
+
+# ----------------------------------------------------- the score kernel
+SCORE_CASES = list(kernel_cases.sw_score_cases(card_size=False))
+SCORE_IDS = [c[0] for c in SCORE_CASES]
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread: the plain loops are many small eager ops, which
+    more threads only slow down beside the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_scores(case: int) -> np.ndarray:
+    args, go, ge = kernel_cases.score_tensors(SCORE_CASES[case], "cpu")
+    return port_sw.sw_scores_plain(*args, go, ge).numpy()
+
+
+def _align_scores(case) -> np.ndarray:
+    """sw_align_plain's score of each pair of a score case: its queries and
+    targets padded into one batch."""
+    name, q, ql, qi, t, offs, sub, go, ge = case
+    tl = np.diff(offs)
+    tp = np.zeros((len(qi), max(int(tl.max()), 1)), np.int8)
+    for b in range(len(qi)):
+        tp[b, : tl[b]] = t[offs[b]: offs[b + 1]]
+    hits = port_sw.sw_align_plain(torch.from_numpy(q[qi]), torch.from_numpy(ql[qi]),
+                                  torch.from_numpy(tp), torch.from_numpy(tl), sub, go, ge)
+    return hits.score.numpy()
+
+
+@pytest.mark.parametrize("case", range(len(SCORE_CASES)), ids=SCORE_IDS)
+@pytest.mark.usefixtures("one_torch_thread")
+def test_sw_scores_plain_is_sw_align_plains_score(case):
+    got = _plain_scores(case)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), _align_scores(SCORE_CASES[case])
+                                  .view(np.int32))
+
+
+@pytest.mark.parametrize("case", range(len(SCORE_CASES)), ids=SCORE_IDS)
+@pytest.mark.usefixtures("one_torch_thread")
+def test_score_kernel_order_model_is_bit_equal_to_the_plain_version(case):
+    _, q, ql, qi, t, offs, sub, go, ge = SCORE_CASES[case]
+    got = kernel_cases.sw_scores_model(q, ql, qi, t, offs, sub, go, ge)
+    np.testing.assert_array_equal(got.view(np.int32), _plain_scores(case).view(np.int32))
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_score_cases_cover_the_hard_shapes():
+    """Both orientations (the streamed side the query where it is the longer
+    and where the target is longer than Lq, the target otherwise), sides
+    past one and two 512-column tiles and last tiles of 4, 8 and 16 columns
+    a lane, empty rows, N codes, pairs scoring twice their length and a
+    shared query set."""
+    streamed_q = streamed_t = past_lq = 0
+    lanes, tiles = set(), set()
+    for name, q, ql, qi, t, offs, sub, go, ge in SCORE_CASES:
+        Lq = q.shape[1]
+        for b, i in enumerate(qi):
+            qlen, tlen = int(ql[i]), int(offs[b + 1] - offs[b])
+            if not qlen or not tlen:
+                continue
+            if qlen >= tlen or tlen > Lq:
+                streamed_q += 1
+                past_lq += tlen > Lq
+                ncols = tlen
+            else:
+                streamed_t += 1
+                ncols = qlen
+            tiles.add(-(-ncols // 512))
+            rem = ncols - 512 * (-(-ncols // 512) - 1)
+            lanes.add(16 if rem > 256 else 8 if rem > 128 else 4)
+    assert streamed_q and streamed_t and past_lq >= 3
+    assert {1, 2, 3} <= tiles and lanes == {4, 8, 16}
+    shapes = {c[0]: c for c in SCORE_CASES}
+    assert any((c[2][c[3]] == 0).any() for c in SCORE_CASES)
+    assert any((np.diff(c[5]) == 0).any() for c in SCORE_CASES)
+    assert any((c[4] == 4).any() and (c[1] == 4).any() for c in SCORE_CASES)
+    twin = SCORE_IDS.index("pairs scoring twice their length")
+    np.testing.assert_array_equal(_plain_scores(twin), 2 * np.diff(shapes[SCORE_IDS[twin]][5]))
+    assert len(set(shapes["a shared query set"][3].tolist())) == 3
+    card = [c[0] for c in kernel_cases.sw_score_cases() if c[0] not in set(SCORE_IDS)]
+    assert len(card) == 3 and card[0].startswith("merge shape")
+
+
+def _score_args():
+    case = SCORE_CASES[SCORE_IDS.index("a shared query set")]
+    args, go, ge = kernel_cases.score_tensors(case, "cpu")
+    return list(args), go, ge
+
+
+def test_score_inputs_are_checked():
+    """What the score kernel does not take is refused with a ValueError
+    naming it (the check runs before every launch on a card): wrong types
+    and shapes, an asymmetric table, fractions, gap_extend > gap_open, and
+    entries or a best possible score at 2^24; the nucleotide table takes the
+    compare form, BLOSUM62 the table."""
+    args, go, ge = _score_args()
+    q, ql, qi, t, offs, sub = args
+    ql32, qi64, offs64, sub32, go_i, ge_i, form = port_sw.score_inputs(
+        q, ql.to(torch.int64), qi.to(torch.int32), t, offs.to(torch.int32), sub.numpy(), go, ge)
+    assert ql32.dtype == torch.int32 and qi64.dtype == offs64.dtype == torch.int64
+    assert sub32.dtype == torch.int32 and (go_i, ge_i) == (7, 2) and form == (1, 2, -3)
+    blosum = kernel_cases.score_tensors(SCORE_CASES[0], "cpu")[0][5]
+    assert port_sw.score_inputs(*args[:5], blosum, 12.0, 1.0)[6][0] == 0
+    asym = sub.clone()
+    asym[0, 1] = 1.0
+    assert q.shape[1] * 2 * 10000 >= port_sw.SCORE_LIMIT > 3 * 10000
+    for bad, what in (
+            (dict(queries=q.to(torch.int32)), "queries"),
+            (dict(queries=q[:0]), "no queries"),
+            (dict(targets=t[None]), "targets"),
+            (dict(q_lens=ql[:-1]), "q_lens"),
+            (dict(q_index=qi.to(torch.float32)), "q_index"),
+            (dict(t_offsets=offs[:-1]), "t_offsets"),
+            (dict(submat=asym), "symmetric"),
+            (dict(submat=sub[:, :-1]), "square"),
+            (dict(submat=sub + 0.5), "integers"),
+            (dict(gap_open=7.5), "integers"),
+            (dict(gap_open=1.0, gap_extend=2.0), "extend <= open"),
+            (dict(gap_extend=-1.0), "extend <= open"),
+            (dict(submat=sub * (1 << 24)), "below"),
+            (dict(submat=sub * 10000), "best possible score")):
+        kw = dict(queries=q, q_lens=ql, q_index=qi, targets=t, t_offsets=offs, submat=sub,
+                  gap_open=go, gap_extend=ge)
+        kw.update(bad)
+        with pytest.raises(ValueError, match=what):
+            port_sw.score_inputs(*kw.values())
+    with pytest.raises(ValueError, match="unsupported device"):
+        port_sw.sw_scores(*(x.to("meta") for x in args), go, ge)
+    with pytest.raises(ValueError, match="out of range"):
+        port_sw.sw_scores_plain(q, ql, qi + 3, t, offs, sub, go, ge)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_cpu_score_calls_take_the_plain_version_and_launch_nothing():
+    args, go, ge = _score_args()
+    assert torch.equal(port_sw.sw_scores(*args, go, ge), port_sw.sw_scores_plain(*args, go, ge))
+    assert kernel_cases.check_sw_scores("cpu", card_size=False) \
+        == (len(SCORE_CASES), sum(len(c[3]) for c in SCORE_CASES))
+    assert port_sw.sw_scores.launches == 0
+
+
+def test_score_kernel_source_is_in_the_library():
+    """The entry points and the constants the wrapper and the numpy model
+    mirror: warps a block, letters, the 2^24 bound, E and F's start, a full
+    tile's columns and the last tiles' (8 and 4)."""
+    assert "sw_score.cu" in kernels.SOURCES
+    src, consts = _consts("sw_score.cu")
+    assert re.search(r'extern "C" int mfx_sw_scores\(', src)
+    assert re.search(r'extern "C" int mfx_sw_scores_blocks\(void\)', src)
+    assert consts["kWarps"] == port_sw.SCORE_WARPS and consts["kMaxK"] == port_sw.SCORE_MAX_K
+    assert consts["kLanes"] == rp.LANES and consts["kCols"] == 16
+    assert "constexpr int kLimit = 1 << 24;" in src and port_sw.SCORE_LIMIT == 1 << 24
+    assert "constexpr int kNeg = -(1 << 30);" in src
+    assert re.search(r"sweep<kCols, CMP>", src) and re.search(r"sweep<8, CMP>", src) \
+        and re.search(r"sweep<4, CMP>", src)
+    assert "const bool stream_q = qlen >= tlen || tlen > a.Lq;" in src

@@ -6,7 +6,8 @@ their own thread; under ``torch.profiler`` the main thread's spans are
 trace's clock; ``run_all`` writes the same bytes traced and untraced; and
 ``MITOFLEX_TORCH_PROFILE`` writes the helper threads' spans into its trace;
 the partial merge's rounds hold blastn's spans, whose counters account for
-every row of the frames it returned.
+every row of the frames it returned, every pair it scored and every pair it
+aligned.
 """
 
 import json
@@ -355,7 +356,7 @@ def test_run_all_traced_writes_the_untraced_bytes(small):
                  "count.merge", "graph.pass", "graph.clean", "graph.unitigs",
                  "findmitoscaf.nhmmer", "nhmmer.v1", "nhmmer.v2", "nhmmer.window",
                  "nhmmer.frame", "findmitoscaf.blast", "findmitoscaf.merge", "merge.round",
-                 "blastn.seed", "blastn.sw", "blastn.frame", "annotate.tblastn", "annotate.genewise", "annotate.trna", "annotate.rrna"):
+                 "blastn.seed", "blastn.sw", "blastn.score", "blastn.frame", "annotate.tblastn", "annotate.genewise", "annotate.trna", "annotate.rrna"):
         assert any(s["name"] == name for s in spans), name
 
 
@@ -418,10 +419,11 @@ def test_merge_rounds_hold_blastn_spans_and_counters(monkeypatch, overlap, joins
     # one round a blastn call: a single picked record skips merge_sequences' loop
     assert [s["attrs"]["round"] for s in rounds] == list(range(len(frames)))
     assert {by_id[s["parent"]]["name"] for s in rounds} == {"findmitoscaf.merge"}
-    for name in ("blastn.seed", "blastn.sw", "blastn.frame"):
+    for name, parent in (("blastn.seed", "merge.round"), ("blastn.sw", "merge.round"),
+                         ("blastn.score", "blastn.sw"), ("blastn.frame", "merge.round")):
         parts = [s for s in spans if s["name"] == name]
         assert len(parts) == len(frames), name
-        assert all(by_id[s["parent"]]["name"] == "merge.round" for s in parts), name
+        assert all(by_id[s["parent"]]["name"] == parent for s in parts), name
 
     def total(counter):
         return sum(s["counters"].get(counter, 0) for s in spans)
@@ -429,6 +431,9 @@ def test_merge_rounds_hold_blastn_spans_and_counters(monkeypatch, overlap, joins
     assert total("blastn.rows") - total("blastn.rows_cut") == sum(len(f) for f in frames)
     assert total("blastn.subjects") == sum(len(db) - i for i in range(len(frames)))
     assert total("blastn.pairs") >= 1 and total("blastn.cells") >= 1500 * 85
+    # every pair scored, and only the rows that pass the cut aligned
+    assert total("blastn.score_pairs") == total("blastn.pairs") == total("blastn.rows")
+    assert total("blastn.path_pairs") == sum(len(f) for f in frames) == joins
     nuc_rows = [f[(f.sseq == "nuc") & (f.length >= 50)] for f in frames]
     if joins:
         assert len(nuc_rows[0]) == 1
